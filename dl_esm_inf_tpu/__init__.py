@@ -1,7 +1,7 @@
-"""dl_esm_inf_tpu — a TPU-native 2D finite-difference earth-system
-modelling infrastructure.
+"""dl_esm_inf_tpu — a 2D finite-difference earth-system modelling
+infrastructure for GPUs.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of
+A from-scratch JAX/XLA framework with the capabilities of
 STFC's dl_esm_inf (the GOcean / PSyclone runtime library): Arakawa-C
 staggered grids, grid-point-typed fields with internal/whole regions,
 T-point masking, 2D domain decomposition with halo exchange, global

@@ -575,8 +575,7 @@ class Schedule:
         def const_of(val):
             """Dedup grid-property arrays by identity (getters return
             cached objects): without this every requesting kernel
-            would add another copy — and the fused sweep would stream
-            one redundant aux plane per duplicate into every tile."""
+            would add another copy of the array to every program."""
             for i, c in enumerate(self._consts):
                 if c is val:
                     return i
@@ -658,7 +657,7 @@ class Schedule:
             tuple(f.data.ndim - 2 for f in self._slots),
             len(self._consts), len(self._scalar_src), len(self._masks))
         self._fused_cache: dict = {}
-        self._fused_mask_codes = None   # packed+exchanged, built once
+        self._fused_masks = None        # exchanged once, on first use
 
     def _user_scalar_vector(self, scalars):
         n_user = sum(1 for k, _ in self._scalar_src if k == "user")
@@ -688,7 +687,8 @@ class Schedule:
         return reds or None
 
     # ------------------------------------------------------------------
-    # The fused (Pallas sweep-engine) execution of a whole schedule.
+    # The fused (one exchange per application batch) execution of a
+    # whole schedule.
     # ------------------------------------------------------------------
     def fused_erosion(self, repeats: int = 1) -> int:
         """Halo-validity erosion of ``repeats`` fused applications of
@@ -705,9 +705,9 @@ class Schedule:
 
         For the NEMOLite2D schedule this gives 3 for one sequence and
         +2 per further repeat (the true per-step dependency depth of
-        the physics — what the hand-fused kernel also achieves), where
+        the physics — what the hand-written model also achieves), where
         the old sum-of-call-depths said 5 per repeat; that is what
-        makes ``repeats > 1`` legal inside the 8-row window ring."""
+        makes ``repeats > 1`` fit a halo of 8."""
         margin = [0] * len(self._slots)
         worst = 0
         for _ in range(int(repeats)):
@@ -724,61 +724,46 @@ class Schedule:
         return worst
 
     def max_fused_repeats(self) -> int:
-        """Largest ``repeats`` whose :meth:`fused_erosion` fits both the
-        sweep window ring and the decomposition halo (capped at the
-        ring size — a pointwise schedule never erodes).  Raises with
-        the required halo when even ONE application does not fit, so
+        """Largest ``repeats`` whose :meth:`fused_erosion` fits the
+        decomposition halo (capped at the halo width — a pointwise
+        schedule never erodes).  Raises with the required halo when
+        even ONE application does not fit, so
         ``fused_program(n, repeats=sched.max_fused_repeats())`` can
         never hand back a value the build then rejects."""
-        from ..ops.fastpath import RING
-        cap = min(RING, self._grid.halo_spec.halo)
+        halo = self._grid.halo_spec.halo
         need1 = self.fused_erosion(1)
-        if need1 > cap:
-            if need1 > RING:
-                raise ValueError(
-                    f"fused schedule: even one application erodes "
-                    f"{need1} halo cells > the {RING}-row window ring — "
-                    "no halo_width can fuse this sequence; split the "
-                    "schedule or run the jnp tier")
+        if need1 > halo:
             raise ValueError(
                 f"fused schedule: even one application erodes {need1} "
-                f"halo cells > decomposition halo "
-                f"{self._grid.halo_spec.halo}; "
-                f"decompose(halo_width={need1}, align_y=8)")
+                f"halo cells > decomposition halo {halo}; "
+                f"decompose(halo_width={need1})")
         k = 1
-        while k < RING and self.fused_erosion(k + 1) <= cap:
+        while k < halo and self.fused_erosion(k + 1) <= halo:
             k += 1
         return k
 
-    def fused(self, scalars=None, *, repeats: int = 1,
-              interpret: bool = False, tile_rows: int | None = None):
-        """Run the WHOLE kernel sequence as ONE Pallas sweep kernel —
-        the communication-avoiding transform of a kernel schedule.
+    def fused(self, scalars=None, *, repeats: int = 1):
+        """Run the WHOLE kernel sequence after ONE halo exchange — the
+        communication-avoiding transform of a kernel schedule.
 
         The jnp schedule exchanges between dependent kernels; this form
         performs ONE coalesced exchange at the sequence's total
         stencil-erosion depth up front and computes halo values
-        redundantly inside the kernel (the deep-halo argument the
-        client models' fast paths use), so the entire sequence — all
-        kernels, masked writes, ``repeats`` applications — is a single
-        HBM pass per repeat batch with zero mid-chain communication.
-        PSyclone's generated layer cannot express this; here the same
-        metadata drives it.
+        redundantly (the deep-halo argument the client models' K-step
+        sweeps use), so the entire sequence — all kernels, masked
+        writes, ``repeats`` applications — runs with zero mid-chain
+        communication.  PSyclone's generated layer cannot express
+        this; here the same metadata drives it.
 
         Requirements (validated with clear errors): no reduction
-        arguments, one field dtype (multi-level ``levels=N`` fields
-        fuse as N streamed planes), ``halo_width >=``
-        :meth:`fused_erosion` ``(repeats)`` (dataflow-aware, <= 8 — the
-        window ring; :meth:`max_fused_repeats` picks the deepest legal
-        temporal blocking), and
-        8-row-aligned shard blocks (``decompose(align_y=8)``; compiled
-        mode additionally needs 128-lane alignment — interpret mode
-        does not).  Semantics match calling the schedule ``repeats``
-        times (pinned by tests on internal points; halo cells hold
-        window-wrapped garbage exactly like the model fast paths).
+        arguments, one field dtype, and ``halo_width >=``
+        :meth:`fused_erosion` ``(repeats)`` (dataflow-aware;
+        :meth:`max_fused_repeats` picks the deepest legal repeat
+        count).  Semantics match calling the schedule ``repeats`` times
+        (pinned by tests on internal points; halo cells beyond the
+        valid ring hold block-wrapped values, as in the models).
         """
-        prog, written, ro = self._fused_prog(1, repeats, interpret,
-                                             tile_rows)
+        prog, written, ro = self._fused_prog(1, repeats)
         rows = self._repeat_rows(scalars, repeats)
         outs = prog(tuple(self._slots[i].data for i in written),
                     tuple(self._slots[i].data for i in ro), [rows])
@@ -786,21 +771,17 @@ class Schedule:
             self._slots[i].data = nb
         return None
 
-    def fused_program(self, nsteps: int, *, repeats: int = 1,
-                      interpret: bool = False,
-                      tile_rows: int | None = None):
+    def fused_program(self, nsteps: int, *, repeats: int = 1):
         """Whole-run fused driver: ``nsteps`` sequence applications
-        (each of ``repeats`` in-kernel repeats) in ONE dispatch — an
+        (each of ``repeats`` repeats per exchange) in ONE dispatch — an
         outer ``lax.fori_loop`` of exchange+sweep inside one jitted
-        program, so per-call host/RPC latency is paid once per run,
-        not per step.  Returns ``run(scalars=None)``: ``scalars`` may
+        program, so per-call host latency is paid once per run, not
+        per step.  Returns ``run(scalars=None)``: ``scalars`` may
         be None / one flat row (the same values throughout), a
         length-``nsteps`` sequence of flat rows (per-step values), or
         a length-``nsteps`` sequence of ``repeats``-row groups.
         Written fields update in place, like :meth:`fused`."""
-        prog, written, ro = self._fused_prog(nsteps, repeats, interpret,
-                                             tile_rows)
-
+        prog, written, ro = self._fused_prog(nsteps, repeats)
         def run(scalars=None):
             try:
                 nd = int(np.ndim(scalars)) if scalars is not None else 0
@@ -823,12 +804,11 @@ class Schedule:
 
         return run
 
-    def _fused_prog(self, nsteps, repeats, interpret, tile_rows):
-        key = (int(nsteps), int(repeats), bool(interpret), tile_rows)
+    def _fused_prog(self, nsteps, repeats):
+        key = (int(nsteps), int(repeats))
         if key not in self._fused_cache:
             self._fused_cache[key] = self._build_fused(
-                int(repeats), bool(interpret), tile_rows,
-                nsteps=int(nsteps))
+                int(repeats), nsteps=int(nsteps))
         return self._fused_cache[key]
 
     def _repeat_rows(self, scalars, repeats):
@@ -848,8 +828,7 @@ class Schedule:
             return [self._user_scalar_vector(r) for r in scalars]
         return [self._user_scalar_vector(scalars)] * int(repeats)
 
-    def _build_fused(self, repeats: int, interpret: bool, tile_rows,
-                     nsteps: int = 1):
+    def _build_fused(self, repeats: int, nsteps: int = 1):
         from jax import lax
         from ..ops.sweep import make_stencil_sweep
         from ..parallel.halo import _exchange_blocks, exchange
@@ -861,13 +840,9 @@ class Schedule:
                 "fused schedules do not support reduction arguments; "
                 "run the jnp schedule (reductions need a mesh "
                 "collective per call)")
-        # Multi-level (levels=N) fields fuse too: each level streams as
-        # its own 2D plane through the sweep (state planes if the slot
-        # is ever written, aux planes otherwise) and the kernel body
-        # sees the stacked (N, ty, tx) view re-assembled in VMEM
-        # compute — the one-dispatch tier for the nlayer family (the
-        # 3D case the reference aborts on, parallel_comms_mod.f90:
-        # 1736-1742).
+        # Multi-level (levels=N) fields fuse too: the level axis rides
+        # the exchange and the kernels whole (the 3D case the reference
+        # aborts on, parallel_comms_mod.f90:1736-1742).
         leads = [f.data.ndim - 2 for f in self._slots]
         nlev = [1 if ld == 0 else int(f.data.shape[0])
                 for ld, f in zip(leads, self._slots)]
@@ -887,16 +862,17 @@ class Schedule:
             raise ValueError(
                 f"fused schedule: {K} repeat(s) erode {depth_needed} "
                 f"halo cells > decomposition halo {spec.halo} "
-                f"(decompose(halo_width={depth_needed}, align_y=8))")
+                f"(decompose(halo_width={depth_needed}))")
 
-        # Slots a kernel writes are sweep STATE (stream in and out);
-        # never-written slots (e.g. bathymetry) are time-invariant and
-        # stream IN only, as aux planes — half their HBM traffic.
+        # Slots a kernel writes are sweep STATE (exchanged and carried);
+        # never-written slots (e.g. bathymetry) are time-invariant:
+        # exchanged once, read only.
         written_set = sorted({si for s in self._steps
                               for si, _ in s["written"]})
         state_pos = {si: i for i, si in enumerate(written_set)}
         ro_slots = [si for si in range(len(self._slots))
                     if si not in state_pos]
+        ro_index = {si: k for k, si in enumerate(ro_slots)}
         n_ro = len(ro_slots)
         # SCRATCH slots (r5): written before ever being read in the
         # sequence AND written under ONE iteration-space mask.  Then
@@ -904,9 +880,9 @@ class Schedule:
         # in the current application or lies outside the slot's single
         # write mask — where NO kernel ever writes, so the value is the
         # time-invariant initial background.  The multi-step driver
-        # streams such slots as read-only aux planes for all but the
-        # LAST step (no per-step write-back traffic, no per-step
-        # exchange) and emits them once at the end.  The single-mask
+        # reads such slots as read-only backgrounds for all but the
+        # LAST step (no per-step carry, no per-step exchange) and
+        # emits them once at the end.  The single-mask
         # condition is load-bearing (review r5, confirmed by repro):
         # with TWO write masks — e.g. an interior compute then a
         # boundary-ring BC kernel, with a stencil read in between —
@@ -914,8 +890,7 @@ class Schedule:
         # semantics, which re-seeding from the background would lose;
         # such slots stay carried.  For the flagship PSy schedule
         # (every scratch slot written under the internal space only)
-        # this cuts per-step streaming from 8 read+write fields to 3
-        # read+write + 5 read-only.
+        # this cuts the per-step carry from 8 fields to 3.
         seen_read, seen_written = set(), set()
         write_masks: dict = {}
         for s in self._steps:
@@ -929,90 +904,44 @@ class Schedule:
                          if si in seen_read or len(write_masks[si]) > 1]
         scratch_slots = [si for si in written_set
                          if si not in carried_slots]
-        # plane layout: slot -> first plane index in the ro stream
-        # (state/extra layouts are per sweep variant, in build_sweep)
-        ro_start, n_ro_planes = {}, 0
-        for si in ro_slots:
-            ro_start[si] = n_ro_planes
-            n_ro_planes += nlev[si]
 
         # Redundant-compute write masks: the jnp schedule's space masks
         # are zero on halo cells (reduction semantics), but the fused
         # form must PERSIST writes to halo cells that mirror a
         # neighbour's internal cells — one halo exchange of each mask
-        # marks exactly those.  The (time-constant, 0/1) masks stream
-        # as packed int8 planes (8 masks per plane, chunked — no limit
-        # on schedule size) decoded once per VMEM tile, instead of one
-        # float plane per mask.  Exchanged+packed ONCE per Schedule
-        # (shared by every fused-cache key; they do not depend on
-        # nsteps/repeats/interpret/tile_rows).
-        from ..ops import stencils as st_ops
-        n_masks = len(self._masks)
-        if self._fused_mask_codes is None:
-            fmasks = [exchange(m, grid.mesh, spec, depth=spec.halo)
-                      for m in self._masks]
-            self._fused_mask_codes = tuple(
-                st_ops.pack_mask_bits(fmasks[i:i + 8])
-                for i in range(0, n_masks, 8))
-        mask_codes = self._fused_mask_codes
-        n_codes = len(mask_codes)
+        # marks exactly those.  Exchanged ONCE per Schedule (shared by
+        # every fused-cache key; they do not depend on nsteps/repeats).
+        if self._fused_masks is None:
+            self._fused_masks = tuple(
+                exchange(m, grid.mesh, spec, depth=spec.halo)
+                for m in self._masks)
+        fmasks = self._fused_masks
+        n_masks = len(fmasks)
         n_consts, n_sc = len(self._consts), len(self._scalar_src)
         steps = self._steps
 
-        def prepare(aux):
-            masks = []
-            for i, c in enumerate(aux[:n_codes]):
-                masks.extend(st_ops.unpack_mask_bits(
-                    c, min(8, n_masks - 8 * i), dtype))
-            return (tuple(masks),) + tuple(aux[n_codes:])
-
         def build_sweep(state_slots, extra_slots):
-            """One sweep variant: ``state_slots`` stream in AND out;
-            ``extra_slots`` (scratch backgrounds) ride as read-only aux
-            planes after the ro planes, re-seeding the merge's mask-0
+            """One sweep variant: ``state_slots`` are exchanged and
+            carried; ``extra_slots`` (scratch backgrounds) ride as
+            read-only operands, re-seeding the merge's mask-0
             background on every application."""
-            sstart, n_sp = {}, 0
-            for si in state_slots:
-                sstart[si] = n_sp
-                n_sp += nlev[si]
-            xstart, n_xp = {}, 0
-            for si in extra_slots:
-                xstart[si] = n_xp
-                n_xp += nlev[si]
 
             def stepf(state, prepared, scalars):
-                masks = prepared[0]
-                consts = prepared[1:1 + n_consts]
-                rest = prepared[1 + n_consts:]
-                ros = rest[:n_ro_planes]
-                extra = rest[n_ro_planes:]
-                # mutable per-slot planes: streamed state plus scratch
-                # slots (seeded from their aux background; every cell a
-                # later kernel reads is either rewritten first or
-                # mask-0 background by the scratch definition)
-                cur = {}
-                for si in state_slots:
-                    cur[si] = list(state[sstart[si]:
-                                         sstart[si] + nlev[si]])
-                for si in extra_slots:
-                    cur[si] = list(extra[xstart[si]:
-                                         xstart[si] + nlev[si]])
-
-                def slot_view(si):
-                    planes = (cur[si] if si in cur
-                              else ros[ro_start[si]:
-                                       ro_start[si] + nlev[si]])
-                    return (planes[0] if leads[si] == 0
-                            else jnp.stack(planes))
-
+                masks, consts, ros, extra = prepared
+                # mutable slots: carried state plus scratch slots
+                # (seeded from their background; every cell a later
+                # kernel reads is either rewritten first or mask-0
+                # background by the scratch definition)
+                cur = dict(zip(state_slots, state))
+                cur.update(zip(extra_slots, extra))
                 for s in steps:
-                    fn = s["fn"]
                     call_args = [
-                        slot_view(i) if kind == "f"
+                        (cur[i] if i in cur else ros[ro_index[i]])
+                        if kind == "f"
                         else consts[i] if kind == "c"
                         else scalars[i]
                         for kind, i in s["binding"] if kind != "r"]
-                    outs = fn(*call_args)
+                    outs = s["fn"](*call_args)
                     if not isinstance(outs, tuple):
                         outs = (outs,)
                     if len(outs) != len(s["written"]):
@@ -1022,39 +951,22 @@ class Schedule:
                             f"declares {len(s['written'])} written "
                             "field(s)")
                     for (si, mi), nb in zip(s["written"], outs):
-                        if leads[si] == 0:
-                            nbs = (nb,)
-                        elif jnp.ndim(nb) == 2:
-                            # a 2D result for a levels=N slot broadcasts
-                            # to every level — the jnp schedule's (and
-                            # invoke's) numpy-broadcasting semantics;
-                            # level ROWS must never be sliced off a 2D
-                            # block
-                            nbs = (nb,) * nlev[si]
-                        else:
-                            if nb.shape[0] != nlev[si]:
-                                raise ValueError(
-                                    f"kernel '{s['fn'].__name__}' "
-                                    f"returned {nb.shape[0]} level "
-                                    f"planes for a levels={nlev[si]} "
-                                    "field")
-                            nbs = tuple(nb[k] for k in range(nlev[si]))
-                        for k, nbk in enumerate(nbs):
-                            cur[si][k] = jnp.where(masks[mi] > 0,
-                                                   nbk.astype(dtype),
-                                                   cur[si][k])
-                return tuple(p for si in state_slots for p in cur[si])
+                        # a 2D result for a levels=N slot broadcasts to
+                        # every level — the jnp schedule's (and
+                        # invoke's) numpy-broadcasting semantics
+                        if (leads[si] and jnp.ndim(nb) != 2
+                                and nb.shape[0] != nlev[si]):
+                            raise ValueError(
+                                f"kernel '{s['fn'].__name__}' "
+                                f"returned {nb.shape[0]} level "
+                                f"planes for a levels={nlev[si]} "
+                                "field")
+                        cur[si] = jnp.where(masks[mi] > 0,
+                                            nb.astype(dtype), cur[si])
+                return tuple(cur[si] for si in state_slots)
 
-            return make_stencil_sweep(
-                stepf, ly=spec.local_ny, lx=spec.local_nx,
-                state_dtypes=(dtype,) * n_sp,
-                aux_dtypes=(jnp.dtype(jnp.int8),) * n_codes
-                + tuple(jnp.dtype(c.dtype) for c in self._consts)
-                + (dtype,) * (n_ro_planes + n_xp),
-                n_scalars=n_sc, steps_per_sweep=K, prepare_fn=prepare,
-                reach=max(-(-depth_needed // K), 1),
-                total_reach=depth_needed, tile_rows=tile_rows,
-                interpret=interpret, repx=spec.repx, repy=spec.repy)
+            return make_stencil_sweep(stepf, spec=spec, steps_per_sweep=K,
+                                      total_reach=depth_needed)
 
         sweep_full = build_sweep(written_set, ())
         # the light variant only exists when the multi-step driver can
@@ -1065,47 +977,15 @@ class Schedule:
 
         blk = P("y", "x")
 
-        def split_planes(arrs, slots_list):
-            planes = []
-            for si, a in zip(slots_list, arrs):
-                if leads[si] == 0:
-                    planes.append(a)
-                else:
-                    planes.extend(a[k] for k in range(nlev[si]))
-            return tuple(planes)
-
-        def join_planes(planes, slots_list):
-            out, i = [], 0
-            for si in slots_list:
-                if leads[si] == 0:
-                    out.append(planes[i])
-                    i += 1
-                else:
-                    out.append(jnp.stack(planes[i:i + nlev[si]]))
-                    i += nlev[si]
-            return tuple(out)
-
-        def body(state, ros, codes, consts, sc):
+        def body(state, ros, masks, consts, sc):
             # read-only slots: one exchange makes their halos valid for
-            # every step (nothing rewrites them).  Exchanges run at the
-            # SLOT level (a level axis rides each message whole); the
-            # sweep streams the flat 2D planes.
+            # every step (nothing rewrites them)
             if depth_needed and n_ro:
                 ros = _exchange_blocks(tuple(ros), spec, depth_needed)
-            ros_p = split_planes(ros, ro_slots)
-
-            def one(sweep_fn, slots, st, extra_p, sc_k):
-                if depth_needed:
-                    st = _exchange_blocks(tuple(st), spec, depth_needed)
-                args = (list(split_planes(st, slots))
-                        + list(codes) + list(consts) + list(ros_p)
-                        + list(extra_p))
-                if n_sc:
-                    args.append(sc_k)
-                return join_planes(tuple(sweep_fn(*args)), slots)
 
             def full(st, sc_k):
-                return one(sweep_full, written_set, st, (), sc_k)
+                return sweep_full(st, (masks, consts, ros, ()),
+                                  sc_k if n_sc else None)
 
             if nsteps == 1:
                 return full(tuple(state), sc[0])
@@ -1122,19 +1002,18 @@ class Schedule:
             # r5 scratch path: the loop carries (and exchanges) only
             # the read-before-write slots; scratch backgrounds are
             # exchanged once (time-invariant where unwritten) and
-            # stream read-only, and the LAST step emits everything
+            # are read only, and the LAST step emits everything
             # through the full sweep.
             pos = {si: k for k, si in enumerate(written_set)}
             carried0 = tuple(state[pos[si]] for si in carried_slots)
             scr_bg = tuple(state[pos[si]] for si in scratch_slots)
             if depth_needed:
                 scr_bg = _exchange_blocks(scr_bg, spec, depth_needed)
-            scr_p = split_planes(scr_bg, scratch_slots)
 
             carried = lax.fori_loop(
                 0, nsteps - 1,
-                lambda i, st: one(sweep_light, carried_slots, st,
-                                  scr_p, sc[i]),
+                lambda i, st: sweep_light(st, (masks, consts, ros, scr_bg),
+                                          sc[i] if n_sc else None),
                 carried0)
             merged = [None] * len(written_set)
             for si, v in zip(carried_slots, carried):
@@ -1147,22 +1026,22 @@ class Schedule:
             body, mesh=grid.mesh,
             in_specs=(tuple(_blk_spec(leads[si]) for si in written_set),
                       tuple(_blk_spec(leads[si]) for si in ro_slots),
-                      tuple([blk] * n_codes), tuple([blk] * n_consts),
+                      tuple([blk] * n_masks), tuple([blk] * n_consts),
                       P()),
             out_specs=tuple(_blk_spec(leads[si]) for si in written_set),
             check_vma=False)
         jprog = jax.jit(smapped)
 
         def prog(state_datas, ro_datas, sc_steps):
-            # SMEM scalars: (nsteps, K, n) — one row per repeat per
-            # step (grid scalars repeat; user scalars may vary)
+            # scalars: (nsteps, K, n) — one row per repeat per step
+            # (grid scalars repeat; user scalars may vary)
             if n_sc:
                 sc = jnp.asarray(
                     [[[float(v) for v in row] for row in rows]
                      for rows in sc_steps], dtype)
             else:
-                sc = jnp.zeros((max(nsteps, 1), K, 1), jnp.float32)
-            return jprog(state_datas, ro_datas, mask_codes,
+                sc = jnp.zeros((max(nsteps, 1), K, 1), dtype)
+            return jprog(state_datas, ro_datas, fmasks,
                          tuple(self._consts), sc)
 
         return prog, written_set, ro_slots

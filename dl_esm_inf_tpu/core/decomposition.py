@@ -1,6 +1,6 @@
 """2D domain decomposition.
 
-TPU-native analogue of the reference's ``go_decompose``
+JAX analogue of the reference's ``go_decompose``
 (finite_difference/src/parallel_mod.f90:70-332) and
 ``decomposition_type`` (decomposition_mod.f90:54-68).
 
@@ -224,8 +224,7 @@ def decompose(global_nx: int,
             f"domain {global_nx}x{global_ny} under uniform {tile_nx}x"
             f"{tile_ny} tiles; use fewer domains or a different grid")
     local_nx = _cdiv(tile_nx + 2 * h, align) * align
-    # align_y pads the sublane dimension (TPU f32 tiling is (8, 128);
-    # the fused Pallas kernels need 8-row-aligned shards)
+    # align_y pads the row count (a caller's layout choice; 1 = none)
     local_ny = _cdiv(tile_ny + 2 * h, align_y) * align_y
 
     subs = []

@@ -1,6 +1,6 @@
 """Fields on the staggered grid.
 
-TPU-native analogue of the reference ``r2d_field``
+JAX analogue of the reference ``r2d_field``
 (finite_difference/src/field_mod.f90:110-390 and methods through :1464).
 
 A field's storage is one ``jax.Array`` in stacked local-shard layout
@@ -200,31 +200,14 @@ class Field:
         return self.grid.external_mask_np(*self._off)
 
     # --- communication ------------------------------------------------------
-    def halo_exchange(self, depth: int = 1,
-                      transport: str = "ppermute",
-                      interpret: bool = False) -> None:
+    def halo_exchange(self, depth: int = 1) -> None:
         """Refresh this field's halo ring (field_mod.f90:1231-1256).
 
         ``depth`` is honoured up to the decomposition's halo width —
         unlike the reference, which ignores it (field_mod.f90:1226-1229).
-
-        ``transport``: ``"ppermute"`` (XLA collectives, the default) or
-        ``"remote_dma"`` (Pallas remote copies over the ICI,
-        parallel/halo_pallas.py; hardware path — ``interpret=True``
-        only for single-axis CPU-mesh testing)."""
-        if transport == "ppermute":
-            self.data = halo_mod.exchange(self.data, self.grid.mesh,
-                                          self.grid.halo_spec, depth)
-        elif transport == "remote_dma":
-            # multi-level fields ride too: the level axis is carried
-            # whole through every DMA (the 3D exchange the reference
-            # aborts on, parallel_comms_mod.f90:1736-1742)
-            from ..parallel.halo_pallas import exchange_pallas
-            self.data = exchange_pallas(self.data, self.grid.mesh,
-                                        self.grid.halo_spec, depth,
-                                        interpret=interpret)
-        else:
-            raise ValueError(f"unknown halo transport {transport!r}")
+        Across devices the exchange is ``ppermute`` (parallel/halo.py)."""
+        self.data = halo_mod.exchange(self.data, self.grid.mesh,
+                                      self.grid.halo_spec, depth)
 
     def apply_periodic_bcs(self) -> None:
         """Apply single-shard periodic wrap copies from the halo

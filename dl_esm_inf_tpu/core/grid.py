@@ -1,6 +1,6 @@
 """The finite-difference grid.
 
-TPU-native analogue of the reference ``grid_type`` + ``grid_init``
+JAX analogue of the reference ``grid_type`` + ``grid_init``
 (finite_difference/src/grid_mod.f90:75-570).  Same responsibilities:
 
 * validate grid kind / offset convention / boundary conditions
@@ -15,7 +15,7 @@ TPU-native analogue of the reference ``grid_type`` + ``grid_init``
   building the static :class:`~..parallel.halo.HaloSpec` and the device
   mesh instead of MPI send/recv lists.
 
-TPU-first deviations (all documented):
+Deviations (all documented):
 
 * Shards are shape-uniform; the remainder is masked padding on the last
   shard of each axis (see core/decomposition.py).
@@ -303,7 +303,8 @@ class Grid:
     # ------------------------------------------------------------------
     # Scale-factor / area / latitude arrays.  The reference allocates
     # all of these eagerly per rank (grid_mod.f90:461-523, 121-134); on
-    # TPU the orthogonal-regular case would burn HBM for values kernels
+    # a device the orthogonal-regular case would spend memory on values
+    # kernels
     # can derive from scalars, so constant arrays materialise lazily on
     # first use — and :meth:`set_scale_factors` replaces any of them
     # with real per-point arrays (GO_ORTHOGONAL_CURVILINEAR support,
@@ -348,8 +349,9 @@ class Grid:
         Missing ``area_*`` entries are derived as ``dx_* * dy_*`` when
         both are present (grid_mod.f90:505-510).
 
-        The fused Pallas fast paths take scalar spacings and are
-        unaffected; curvilinear physics runs on the jnp/invoke path.
+        The flagship's fused GPU kernel takes scalar spacings and does
+        not serve such grids; curvilinear physics runs on the
+        jnp/invoke path.
         """
         if not self._initialised:
             raise RuntimeError("call init() before set_scale_factors()")

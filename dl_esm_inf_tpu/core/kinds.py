@@ -2,13 +2,13 @@
 
 The reference library pins everything to IEEE double precision
 (``GO_WP = SELECTED_REAL_KIND(12,307)``, reference
-finite_difference/src/kind_params_mod.f90:9).  On TPU, fp64 is software
-emulated and slow, so the TPU-native policy is a *configurable* working
-precision:
+finite_difference/src/kind_params_mod.f90:9).  Double precision moves
+twice the bytes of single precision through a bandwidth-bound stencil,
+so the policy here is a *configurable* working precision:
 
 * ``float64`` — bit-compatible semantics with the reference (requires
   ``jax_enable_x64``; used for validation, CPU test meshes and goldens).
-* ``float32`` — the TPU performance dtype (default on TPU).
+* ``float32`` — the performance dtype (the default without x64).
 * ``bfloat16`` — available for experimentation; checksums still accumulate
   in float32.
 
@@ -47,7 +47,7 @@ def _default_dtype():
                 f"{sorted(_DTYPE_NAMES)}")
         return _DTYPE_NAMES[env]
     # Honour x64 mode if the user enabled it (matches GO_WP = double),
-    # otherwise use the TPU-native float32.
+    # otherwise use float32.
     if jax.config.jax_enable_x64:
         return jnp.float64
     return jnp.float32
@@ -84,7 +84,7 @@ def sum_dtype():
 
     Checksums in the reference are fp64 (field_mod.f90:1289-1307).  We
     accumulate in fp64 when x64 is on, else float32 (documented deviation:
-    TPU fp32 mode states its tolerance per-test).
+    fp32 mode states its tolerance per-test).
     """
     if jax.config.jax_enable_x64:
         return jnp.dtype(jnp.float64)

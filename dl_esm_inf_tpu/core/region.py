@@ -1,6 +1,6 @@
 """Rectangular index regions — the universal currency for bounds.
 
-TPU-native analogue of the reference's ``region_type``
+JAX analogue of the reference's ``region_type``
 (finite_difference/src/region_mod.f90:7-12) and ``subdomain_type``
 (finite_difference/src/decomposition_mod.f90:44-50).
 
@@ -9,7 +9,7 @@ Conventions (deliberately different from the Fortran reference):
 * **0-based, half-open** intervals ``[start, stop)`` — Python/JAX idiom.
   The reference uses 1-based inclusive bounds; the mapping is
   ``py_start = f_start - 1``, ``py_stop = f_stop``.
-* Arrays are indexed ``data[y, x]`` (x is the contiguous / lane
+* Arrays are indexed ``data[y, x]`` (x is the contiguous
   dimension), whereas the Fortran reference uses column-major
   ``data(ji, jj)`` with ji contiguous.  Both put the x sweep on the
   fast axis of the hardware.

@@ -5,11 +5,12 @@ multi-controller JAX model: spawns N copies of a script, each a JAX
 process, wired together through the env protocol
 :func:`~.parallel.environment.initialise` understands
 (``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
-``JAX_PROCESS_ID``).  On a real pod the resource manager plays this
-role; locally this launcher lets the same multi-process program be
-developed and tested on one box (with ``--devices-per-process`` virtual
-CPU devices each), exactly as the reference CI oversubscribes MPI ranks
-on one VM (makefile-test.yml:59).
+``JAX_PROCESS_ID``).  On a cluster the resource manager plays this
+role; locally this launcher runs one process per GPU of the host (each
+rank sees only its own card through ``CUDA_VISIBLE_DEVICES``), or, with
+``--devices-per-process``, N virtual CPU devices per process — exactly
+as the reference CI oversubscribes MPI ranks on one VM
+(makefile-test.yml:59).
 
     python -m dl_esm_inf_tpu.launch -n 2 my_model_script.py [args...]
 """
@@ -29,6 +30,34 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def rank_env(base: dict, pid: int, num_processes: int, port: int,
+             devices_per_process: int | None = None) -> dict:
+    """The environment of rank ``pid``: the coordinator protocol, plus
+    either ``devices_per_process`` forced virtual CPU devices or ONE
+    card — the ``pid``-th of the cards ``base`` makes visible (all of
+    the host's when it names none).  A JAX process claims every card it
+    can see, so without this each rank would reserve all of them."""
+    env = dict(base)
+    env["JAX_COORDINATOR_ADDRESS"] = f"localhost:{port}"
+    env["JAX_NUM_PROCESSES"] = str(num_processes)
+    env["JAX_PROCESS_ID"] = str(pid)
+    if devices_per_process:
+        env["XLA_FLAGS"] = (
+            env.get("XLA_FLAGS", "") +
+            f" --xla_force_host_platform_device_count="
+            f"{devices_per_process}").strip()
+        env["DL_ESM_FORCE_CPU_DEVICES"] = str(devices_per_process)
+        return env
+    visible = [c for c in env.get("CUDA_VISIBLE_DEVICES", "").split(",")
+               if c.strip()]
+    if visible and pid >= len(visible):
+        raise ValueError(
+            f"rank {pid} has no card: CUDA_VISIBLE_DEVICES lists "
+            f"{len(visible)}")
+    env["CUDA_VISIBLE_DEVICES"] = visible[pid] if visible else str(pid)
+    return env
+
+
 def launch(script: str, args, num_processes: int = 2,
            devices_per_process: int | None = None,
            port: int | None = None, base_env: dict | None = None) -> int:
@@ -40,16 +69,8 @@ def launch(script: str, args, num_processes: int = 2,
         port = _free_port()
     procs = []
     for pid in range(num_processes):
-        env = dict(os.environ if base_env is None else base_env)
-        env["JAX_COORDINATOR_ADDRESS"] = f"localhost:{port}"
-        env["JAX_NUM_PROCESSES"] = str(num_processes)
-        env["JAX_PROCESS_ID"] = str(pid)
-        if devices_per_process:
-            env["XLA_FLAGS"] = (
-                env.get("XLA_FLAGS", "") +
-                f" --xla_force_host_platform_device_count="
-                f"{devices_per_process}").strip()
-            env["DL_ESM_FORCE_CPU_DEVICES"] = str(devices_per_process)
+        env = rank_env(os.environ if base_env is None else base_env, pid,
+                       num_processes, port, devices_per_process)
         procs.append(subprocess.Popen(
             [sys.executable, script, *args], env=env))
     # Poll the whole gang: if any rank dies with a nonzero status,
@@ -92,8 +113,8 @@ def main(argv=None):
     ap.add_argument("-n", "--num-processes", type=int, default=2)
     ap.add_argument("--devices-per-process", type=int, default=None,
                     help="force this many virtual CPU devices per "
-                         "process (local testing); omit on real "
-                         "accelerators")
+                         "process (local testing); omit to give each "
+                         "process one GPU")
     ap.add_argument("--port", type=int, default=None,
                     help="coordinator port (default: pick a free one)")
     ap.add_argument("script")

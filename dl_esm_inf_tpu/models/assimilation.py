@@ -23,6 +23,7 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 from ..core import layout
 
@@ -60,40 +61,37 @@ def _trajectory_runner(model):
                 model._t_upd,
                 lambda x0: flow0 + (x0,))
     if isinstance(model, TracerModel):
-        if model.use_pallas or model._sweep_K > 1:
+        if model._sweep_K > 1:
             raise ValueError(
-                "4D-Var needs the plain differentiable jnp path: build "
-                "the tracer model without pallas/steps_per_sweep")
+                "4D-Var needs the one-step differentiable path: build "
+                "the tracer model without steps_per_sweep")
         ops = (model._u, model._v, model._t_upd, model._u_wet,
-               model._v_wet, model._mask_codes)
+               model._v_wet)
         return ((lambda prog, st, base: prog(*st, *ops)), model._t_upd,
                 lambda x0: (x0,))
     if isinstance(model, GravityWaveModel):
-        if model.use_pallas or model._sweep_K > 1:
+        if model._sweep_K > 1:
             raise ValueError(
-                "4D-Var needs the plain differentiable jnp path: build "
-                "the model without pallas/steps_per_sweep (pallas_call "
-                "has no VJP)")
-        ops = (model._t_upd, model._u_wet, model._v_wet,
-               model._mask_codes)
+                "4D-Var needs the one-step differentiable path: build "
+                "the model without steps_per_sweep")
+        ops = (model._t_upd, model._u_wet, model._v_wet)
         return ((lambda prog, st, base: prog(*st, *ops)),
                 model._t_upd, rest3)
     from .shallow import ShallowModel
     from .twolayer import TwoLayerModel
     if isinstance(model, ShallowModel):
-        if model.use_pallas or model._sweep_K > 1:
+        if model._sweep_K > 1:
             raise ValueError(
-                "4D-Var needs the plain differentiable jnp path: build "
-                "the model without pallas/steps_per_sweep")
+                "4D-Var needs the one-step differentiable path: build "
+                "the model without steps_per_sweep")
         ones = jnp.ones_like(model.eta.data)   # all-wet periodic
         return ((lambda prog, st, base: prog(*st)), ones, rest3)
     if isinstance(model, TwoLayerModel):
-        if model.use_pallas or model._sweep_K > 1:
+        if model._sweep_K > 1:
             raise ValueError(
-                "4D-Var needs the plain differentiable jnp path: build "
-                "the model without pallas/steps_per_sweep")
-        ops = (model._t_upd, model._u_wet, model._v_wet,
-               model._mask_codes)
+                "4D-Var needs the one-step differentiable path: build "
+                "the model without steps_per_sweep")
+        ops = (model._t_upd, model._u_wet, model._v_wet)
 
         def rest6(x0):
             z = jnp.zeros_like(x0)
@@ -116,10 +114,6 @@ def _trajectory_runner(model):
         # the NONLINEAR flagship: jax.grad flows through the upwind
         # flux selections (a.e.-valid subgradients) and the tidal
         # forcing's step index
-        if model.use_pallas:
-            raise ValueError(
-                "4D-Var needs the plain differentiable jnp path: build "
-                "the flagship without pallas=True")
         if getattr(model, "_ht", None) is not None:
             raise ValueError("flagship 4D-Var supports flat bathymetry")
         return ((lambda prog, st, base: prog(
@@ -204,7 +198,8 @@ def hybrid_controls(model, ensemble, *, smooth_scale: float = 2.0,
     anoms = (eo - em[None]) * norm            # (M, Y, X), sharded
 
     def transform(x):
-        inc = beta_e * jnp.einsum("k,kyx->yx", x["a"], anoms)
+        inc = beta_e * jnp.einsum("k,kyx->yx", x["a"], anoms,
+                                 precision=lax.Precision.HIGHEST)
         return beta_s * sm(x["w"]) + inc
 
     def penalty(x):

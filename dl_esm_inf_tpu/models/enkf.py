@@ -8,7 +8,8 @@ field_mod.f90:139-166), so this workflow on the reference means M job
 launches plus a hand-written MPI analysis code; here it is one program.
 
 The ensemble transform Kalman filter (ETKF, Bishop et al. 2001; the
-square-root form of Hunt et al. 2007) is TPU-native by construction:
+square-root form of Hunt et al. 2007) maps onto the card by
+construction:
 
 * obs-space statistics reduce to an (M, M) matrix and an (M,) vector —
   each shard contributes its local observations via masked ``einsum``
@@ -17,8 +18,9 @@ square-root form of Hunt et al. 2007) is TPU-native by construction:
 * the (M, M) eigendecomposition is replicated per device (identical
   inputs -> identical weights everywhere);
 * the state update is a member-space matmul applied point-wise,
-  ``X_a = x̄ + W^T X'`` over every local grid point — exactly the
-  large, batched matmul the MXU wants;
+  ``X_a = x̄ + W^T X'`` over every local grid point —
+  a large, batched matmul for the tensor cores (every f32 product asks
+  for ``precision=HIGHEST``, so the card never rounds it to TF32);
 * because every device applies the SAME (M, M) weights, shard-halo
   points transform exactly like their interior twins on the
   neighbouring shard — the analysis needs NO halo exchange and
@@ -41,6 +43,8 @@ from jax.sharding import PartitionSpec as P
 
 from ..core import layout
 
+HIGHEST = lax.Precision.HIGHEST
+
 
 def _etkf_weights(S, d, m, inflation):
     """ETKF weight matrix from obs-space moments: returns ``Wtot`` with
@@ -61,10 +65,10 @@ def _etkf_weights(S, d, m, inflation):
     # so a degenerate ensemble cannot emit NaNs
     lam = jnp.maximum(lam, jnp.asarray(1e-30, dtype))
     qt = jnp.swapaxes(q, -1, -2)
-    p_tilde = (q / lam[..., None, :]) @ qt
-    w_mean = (p_tilde @ d[..., None])[..., 0]
-    w_anom = jnp.sqrt(jnp.asarray(m - 1, dtype)) * (
-        (q / jnp.sqrt(lam)[..., None, :]) @ qt)
+    p_tilde = jnp.matmul(q / lam[..., None, :], qt, precision=HIGHEST)
+    w_mean = jnp.matmul(p_tilde, d[..., None], precision=HIGHEST)[..., 0]
+    w_anom = jnp.sqrt(jnp.asarray(m - 1, dtype)) * jnp.matmul(
+        q / jnp.sqrt(lam)[..., None, :], qt, precision=HIGHEST)
     return w_mean[..., None] + w_anom
 
 
@@ -100,7 +104,7 @@ class ETKF:
     from observations within ``2L``, with Gaspari-Cohn-tapered
     R-localisation — the production form for small ensembles, where
     spurious long-range sample covariances otherwise contaminate the
-    update.  On TPU the per-point (M, M) eigendecompositions run as
+    update.  The per-point (M, M) eigendecompositions run as
     one batched ``eigh`` over all local points and the moments are
     taper-weighted einsums.  At ``inflation=1`` points out of range of
     every observation are left exactly unchanged (the transform
@@ -198,19 +202,22 @@ class ETKF:
             em = jnp.mean(eo, axis=0)
             ep = eo - em[None]
             # obs-space moments: one psum of M^2 + M + 1 scalars total
-            S = lax.psum(jnp.einsum("myx,nyx->mn", ep, ep * w[None]),
+            S = lax.psum(jnp.einsum("myx,nyx->mn", ep, ep * w[None],
+                                    precision=HIGHEST),
                          ("y", "x"))
-            d = lax.psum(jnp.einsum("myx,yx->m", ep, (obs - em) * w),
+            d = lax.psum(jnp.einsum("myx,yx->m", ep, (obs - em) * w,
+                                    precision=HIGHEST),
                          ("y", "x"))
             wtot = _etkf_weights(S, d, m, rho)
             out = []
             for f in state:
                 fm = jnp.mean(f, axis=0)
                 fp = f - fm[None]
-                # the MXU leg: member-space mix at every local point
+                # the matmul leg: member-space mix at every local point
                 # (ellipsis carries vertical-level axes through)
                 out.append(fm[None]
-                           + jnp.einsum("mk,m...->k...", wtot, fp))
+                           + jnp.einsum("mk,m...->k...", wtot, fp,
+                                        precision=HIGHEST))
             return tuple(out)
 
         smapped = jax.shard_map(
@@ -252,8 +259,10 @@ class ETKF:
             sel = ((gyi[None] == oyi[:, None, None])
                    & (gxi[None] == oxi[:, None, None])
                    & (wet > 0)[None]).astype(dtype)
-            yp = lax.psum(jnp.einsum("pyx,myx->pm", sel, ep), ("y", "x"))
-            mo = lax.psum(jnp.einsum("pyx,yx->p", sel, em), ("y", "x"))
+            yp = lax.psum(jnp.einsum("pyx,myx->pm", sel, ep,
+                                       precision=HIGHEST), ("y", "x"))
+            mo = lax.psum(jnp.einsum("pyx,yx->p", sel, em,
+                                       precision=HIGHEST), ("y", "x"))
             innov = ovals - mo
             # per-point Gaspari-Cohn taper of R^-1 (R-localisation);
             # padded slots carry far-away coords -> taper exactly 0
@@ -263,15 +272,18 @@ class ETKF:
                   - oxi.astype(dtype)[:, None, None]) * dx
             taper = gaspari_cohn(jnp.sqrt(fy * fy + fx * fx) / rad)
             w = taper * sig_inv2
-            S = jnp.einsum("pyx,pm,pn->yxmn", w, yp, yp)
-            dloc = jnp.einsum("pyx,pm,p->yxm", w, yp, innov)
+            S = jnp.einsum("pyx,pm,pn->yxmn", w, yp, yp,
+                           precision=HIGHEST)
+            dloc = jnp.einsum("pyx,pm,p->yxm", w, yp, innov,
+                              precision=HIGHEST)
             wtot = _etkf_weights(S, dloc, m, rho)      # (ly, lx, M, M)
             out = []
             for f in state:
                 fm = jnp.mean(f, axis=0)
                 fp = f - fm[None]
                 out.append(fm[None] + jnp.einsum("yxmk,m...yx->k...yx",
-                                                 wtot, fp))
+                                                 wtot, fp,
+                                                 precision=HIGHEST))
             return tuple(out)
 
         smapped = jax.shard_map(

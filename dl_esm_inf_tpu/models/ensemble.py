@@ -3,7 +3,7 @@
 Ensemble forecasting is the bread-and-butter workflow of the codes the
 reference serves; on MPI it means M separate job launches (the
 reference has no batching concept — one `r2d_field` is one array,
-field_mod.f90:139-166).  TPU-natively an ensemble is just a leading
+field_mod.f90:139-166).  Here an ensemble is just a leading
 axis: every stencil/mask op broadcasts over `(M, ly, lx)` blocks
 unchanged, and the halo exchange already carries leading dimensions —
 coalescing ALL members' edge strips into the same 4 messages per step
@@ -37,11 +37,6 @@ def _adapt(model):
     ``exch_depth`` the halo depth its per-step exchange needs."""
     from . import (gravity_wave, nemolite2d, semi_implicit, shallow,
                    tracer, twolayer)
-    if getattr(model, "use_pallas", False):
-        raise ValueError(
-            "Ensemble wraps the jnp path; build the base model without "
-            "pallas=True (the fused sweep engine is single-state)")
-
     def plain(exch, st_, mk, istep):
         return tuple(model._block_step(exch, *st_, *mk))
 

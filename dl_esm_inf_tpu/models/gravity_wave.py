@@ -26,7 +26,6 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-from jax import lax
 from jax.sharding import PartitionSpec as P
 
 import dl_esm_inf_tpu as dl
@@ -92,14 +91,7 @@ class GravityWaveModel:
         dtype = self.eta.dtype
         self._t_upd, self._u_wet, self._v_wet = wet_update_masks(
             grid, dtype)
-        # 3-bit code for the Pallas path: 1 B/pt instead of three arrays
-        self._mask_codes = jax.device_put(
-            st.pack_mask_bits((self._t_upd, self._u_wet, self._v_wet)),
-            grid.sharding)
         self._step_cache = {}
-        self.use_pallas = False
-        self._pallas_interpret = False
-        self._pallas_tile_rows = None
         self._sweep_K = 1
 
     # ------------------------------------------------------------------
@@ -128,44 +120,12 @@ class GravityWaveModel:
         return self._step_math(eta, u, v, t_upd, u_wet, v_wet)
 
     # ------------------------------------------------------------------
-    def enable_pallas(self, interpret: bool = False,
-                      tile_rows: int | None = None,
-                      steps_per_sweep: int = 1) -> None:
-        """Fused stencil-sweep fast path (ops/sweep.py engine).
-
-        The step's total stencil reach is 1, so up to 8 steps fit one
-        sweep (temporal blocking); needs ``halo_width >= steps_per_sweep``
-        and TPU-tile-aligned shards (``build(pallas=True)`` sets both)."""
-        from ..ops.fastpath import enable_fast_path
-        enable_fast_path(self, reach=1, interpret=interpret,
-                         tile_rows=tile_rows,
-                         steps_per_sweep=steps_per_sweep)
-
     def set_steps_per_exchange(self, steps_per_sweep: int) -> None:
-        """Comm avoidance on the jnp path: K chained steps per depth-K
-        exchange (no Pallas; ops/fastpath.py)."""
-        from ..ops.fastpath import set_steps_per_exchange
+        """Comm avoidance: K chained steps per depth-K exchange
+        (ops/sweep.py)."""
+        from ..ops.sweep import set_steps_per_exchange
         set_steps_per_exchange(self, reach=1,
                                steps_per_sweep=steps_per_sweep)
-
-    def _make_sweep(self, K: int):
-        from ..ops.sweep import make_stencil_sweep
-        spec = self.grid.halo_spec
-        dtype = jnp.dtype(self.eta.dtype)
-
-        def prepare(aux):
-            return st.unpack_mask_bits(aux[0], 3, dtype)
-
-        def stepf(state, prepared, scalars):
-            return self._step_math(*state, *prepared)
-
-        return make_stencil_sweep(
-            stepf, ly=spec.local_ny, lx=spec.local_nx,
-            state_dtypes=(dtype,) * 3, aux_dtypes=(jnp.int8,),
-            n_scalars=0, steps_per_sweep=K, reach=1, prepare_fn=prepare,
-            tile_rows=self._pallas_tile_rows,
-            interpret=self._pallas_interpret,
-            repx=spec.repx, repy=spec.repy)
 
     def step_program(self, nsteps: int = 1,
                      remat_chunk: int | None = None):
@@ -175,57 +135,36 @@ class GravityWaveModel:
         the loop (``ops/adjoint.py``): per-step checkpointing, plus a
         two-level scheme when ``remat_chunk > 1``.  Forward results
         are bitwise unchanged."""
-        if remat_chunk is not None and (self.use_pallas
-                                        or self._sweep_K > 1):
+        if remat_chunk is not None and self._sweep_K > 1:
             raise ValueError(
-                "remat_chunk needs the plain differentiable jnp path: "
-                "build the model without pallas/steps_per_sweep")
+                "remat_chunk needs the one-step differentiable path: "
+                "build the model without steps_per_sweep")
         key = (nsteps, remat_chunk)
         if key not in self._step_cache:
+            from ..ops.sweep import make_stencil_sweep, run_steps
             grid = self.grid
             exch = exchange_multi_fn(grid.halo_spec, depth=1)
             K = self._sweep_K
-            if K > 1 or self.use_pallas:
-                exchK = exchange_multi_fn(grid.halo_spec, depth=max(K, 1))
-            if self.use_pallas:
-                sweepK = self._make_sweep(K)
+            sweepK = make_stencil_sweep(
+                lambda s, masks, _: self._step_math(*s, *masks),
+                spec=grid.halo_spec, steps_per_sweep=K, reach=1)
 
-            def body(eta, u, v, t_upd, u_wet, v_wet, codes):
-                state = (eta, u, v)
-                base = 0
-                if remat_chunk is not None:
-                    from ..ops.adjoint import checkpointed_fori
-
-                    def one(_, s):
-                        return self._block_step(exch, *s, t_upd, u_wet,
-                                                v_wet)
-                    return checkpointed_fori(nsteps, one, state,
-                                             remat_chunk)
-                if (K > 1 or self.use_pallas) and nsteps >= K:
-                    if self.use_pallas:
-                        def sweep(_, s):
-                            return sweepK(*exchK(s), codes)
-                    else:
-                        def sweep(_, s):   # jnp comm avoidance
-                            s = exchK(s)
-                            for _k in range(K):
-                                s = self._step_math(*s, t_upd, u_wet,
-                                                    v_wet)
-                            return tuple(s)
-                    state = lax.fori_loop(0, nsteps // K, sweep, state)
-                    base = (nsteps // K) * K
+            def body(eta, u, v, t_upd, u_wet, v_wet):
+                masks = (t_upd, u_wet, v_wet)
 
                 def one(_, s):
-                    return self._block_step(exch, *s, t_upd, u_wet, v_wet)
-                if nsteps - base:
-                    state = lax.fori_loop(0, nsteps - base, one, state)
-                return state
+                    return self._block_step(exch, *s, *masks)
 
-            # check_vma=False: pallas_call outputs don't carry varying-
-            # mesh-axis metadata; the specs are explicit anyway.
+                if remat_chunk is not None:
+                    from ..ops.adjoint import checkpointed_fori
+                    return checkpointed_fori(nsteps, one, (eta, u, v),
+                                             remat_chunk)
+                return run_steps(nsteps, K, (eta, u, v),
+                                 lambda _, s: sweepK(s, masks), one)
+
             smapped = jax.shard_map(
                 body, mesh=grid.mesh,
-                in_specs=(P("y", "x"),) * 7,
+                in_specs=(P("y", "x"),) * 6,
                 out_specs=(P("y", "x"),) * 3, check_vma=False)
             self._step_cache[key] = jax.jit(smapped)
         return self._step_cache[key]
@@ -233,8 +172,7 @@ class GravityWaveModel:
     def run(self, nsteps: int) -> None:
         prog = self.step_program(nsteps)
         eta, u, v = prog(self.eta.data, self.u.data, self.v.data,
-                         self._t_upd, self._u_wet, self._v_wet,
-                         self._mask_codes)
+                         self._t_upd, self._u_wet, self._v_wet)
         self.eta.data, self.u.data, self.v.data = eta, u, v
 
     # ------------------------------------------------------------------
@@ -251,26 +189,21 @@ class GravityWaveModel:
 def build(gnx: int = 256, gny: int = 256, ndomains=None, dt: float = 0.05,
           g: float = 9.81, depth: float = 10.0, dx: float = 1.0,
           dy: float = 1.0, tmask=None, dtype=None, halo_width: int = 1,
-          pallas: bool = False,
           steps_per_sweep: int = 1) -> GravityWaveModel:
     """Convenience constructor: grid + land-ring tmask + model.
 
-    ``pallas=True`` selects the fused stencil-sweep fast path
-    (TPU-tile-aligned shards, ``halo_width >= steps_per_sweep``)."""
-    from ..ops.fastpath import fast_path_grid_args
-    halo_width, align, align_y = fast_path_grid_args(
-        pallas, steps_per_sweep, 1, halo_width)
+    ``steps_per_sweep=K`` runs K steps per depth-K halo exchange
+    (``halo_width`` is deepened to K)."""
+    from ..ops.sweep import sweep_halo
+    halo_width = sweep_halo(steps_per_sweep, 1, halo_width)
     grid = dl.Grid(dl.ARAKAWA_C,
                    (dl.BC_EXTERNAL, dl.BC_EXTERNAL, dl.BC_NONE),
                    dl.OFFSET_NE, dtype=dtype)
-    grid.decompose(gnx, gny, ndomains=ndomains, halo_width=halo_width,
-                   align=align, align_y=align_y)
+    grid.decompose(gnx, gny, ndomains=ndomains, halo_width=halo_width)
     dl.grid_init(grid, dx, dy, default_tmask(gnx, gny)
                  if tmask is None else tmask)
     model = GravityWaveModel(grid, dt=dt, g=g, depth=depth)
-    if pallas:
-        model.enable_pallas(steps_per_sweep=steps_per_sweep)
-    elif steps_per_sweep > 1:
+    if steps_per_sweep > 1:
         model.set_steps_per_exchange(steps_per_sweep)
     return model
 

@@ -26,6 +26,7 @@ multi-step runs go through ``lax.fori_loop`` under a single jit.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -73,13 +74,13 @@ def continuity(sshn_t, un, vn, depu, depv, *, rdt, dx, dy):
 
     Flux through the east U face of T cell (ji): dep_u*un*dy at U[ji];
     west face is U[ji-1] (NE offset).  All scalar factors are folded at
-    trace time (rdt/dx, rdt/dy) — VPU op count matters more than
-    formula symmetry."""
+    trace time (rdt/dx, rdt/dy) — op count matters more than formula
+    symmetry."""
     fx = depu * un
     fy = depv * vn
     if (isinstance(dx, (int, float)) and isinstance(dy, (int, float))
             and dx == dy):
-        # Square cells with STATIC scale factors (the fused/model
+        # Square cells with STATIC scale factors (the model
         # paths): one shared prefactor.  Traced scalars (invoke/
         # Schedule) always take the general form below, so those paths
         # may differ from this one by an ulp of rounding order —
@@ -118,7 +119,7 @@ def continuity_psy(ssha, sshn, un, vn, depu, depv, rdt, dx, dy):
               Arg(GO_READ, GO_CV, _FULL)],
         name="momentum_u")
 def momentum_u(un, vn, sshn_t, ssha_t, sshn_u, ht, hu, depv, *, p: Params,
-               dx, dy, fcor, recip=None, dep_u=None, z=None, fric=None):
+               dx, dy, fcor, dep_u=None, z=None, fric=None):
     """ua at U faces: advection + viscosity + Coriolis + pressure
     gradient + semi-implicit bottom friction.
 
@@ -127,15 +128,14 @@ def momentum_u(un, vn, sshn_t, ssha_t, sshn_u, ht, hu, depv, *, p: Params,
     F corners surrounding the U face carry the upstream u value.
     Every read is within +/-1 of the exchanged prognostics (halo-1).
 
-    VPU-roll-minimal form (the step is VPU-bound on TPU, scripts/
-    kbench.py): each face-flux pair is computed ONCE at its donor-side
+    Roll-minimal form: each face-flux pair is computed ONCE at its donor-side
     site and the opposite face obtained by rolling the *result* —
     m_e = xp(m_w), u_de = xp(u_dw), gx_e = xp(gx_w), gy_s = ym(gy_n)
     are exact elementwise identities because roll is a permutation.
     The advection and viscosity divergences along each axis then share
     a single roll of their rdt-folded sum.  ``dep_u``/``z`` accept the
     caller's precomputed totals (step_math shares them with continuity
-    and momentum_v; the kernel is VPU-bound so repeated adds count)."""
+    and momentum_v)."""
     if dep_u is None:
         dep_u = hu + sshn_u                   # total depth at U
     if z is None:
@@ -167,7 +167,7 @@ def momentum_u(un, vn, sshn_t, ssha_t, sshn_u, ht, hu, depv, *, p: Params,
     # ssh (forward-backward scheme: continuity first, momentum sees the
     # updated surface — gravity-wave stable up to c*dt*sqrt(2)/dx ~ 1).
     # Both terms carry the SAME dep_u factor, so it is applied once to
-    # their sum (one fewer vector multiply; the step is VPU-bound) -------
+    # their sum (one fewer vector multiply) -----------------------------
     corhpg = ((0.25 * p.rdt * fcor) * (wv + st.ym(wv))
               + (-p.rdt * p.g / dx) * (st.xp(ssha_t) - ssha_t)) * dep_u
 
@@ -176,7 +176,7 @@ def momentum_u(un, vn, sshn_t, ssha_t, sshn_u, ht, hu, depv, *, p: Params,
     # better conditioned (the dep*recip(dep) ulp never touches un).
     # ``fric`` lets the caller fold the wet-face mask into the friction
     # factor (one hoisted array multiply instead of scalar + mask) -------
-    rd = recip(dep_u) if recip is not None else 1.0 / dep_u
+    rd = 1.0 / dep_u
     if fric is None:
         fric = 1.0 / (1.0 + p.cbfr * p.rdt)
     ua = (un + (term_x + term_y + corhpg) * rd) * fric
@@ -191,7 +191,7 @@ def momentum_u(un, vn, sshn_t, ssha_t, sshn_u, ht, hu, depv, *, p: Params,
               Arg(GO_READ, GO_CU, _FULL)],
         name="momentum_v")
 def momentum_v(un, vn, sshn_t, ssha_t, sshn_v, ht, hv, depu, *, p: Params,
-               dx, dy, fcor, recip=None, dep_v=None, z=None, fric=None):
+               dx, dy, fcor, dep_v=None, z=None, fric=None):
     """Mirror of :func:`momentum_u` in the same roll-minimal form."""
     if dep_v is None:
         dep_v = hv + sshn_v
@@ -221,7 +221,7 @@ def momentum_v(un, vn, sshn_t, ssha_t, sshn_v, ht, hv, depu, *, p: Params,
     corhpg = ((-0.25 * p.rdt * fcor) * (wu + st.xm(wu))
               + (-p.rdt * p.g / dy) * (st.yp(ssha_t) - ssha_t)) * dep_v
 
-    rd = recip(dep_v) if recip is not None else 1.0 / dep_v
+    rd = 1.0 / dep_v
     if fric is None:
         fric = 1.0 / (1.0 + p.cbfr * p.rdt)
     va = (vn + (term_y + term_x + corhpg) * rd) * fric
@@ -231,9 +231,10 @@ def momentum_v(un, vn, sshn_t, ssha_t, sshn_v, ht, hv, depu, *, p: Params,
 def tidal_forcing(rtime, p: Params):
     """The bc_ssh amplitude at model time ``rtime`` (scalar).
 
-    Uses the working-precision sine (:mod:`..ops.trig`): XLA:TPU's own
-    f64 sin is only f32-accurate, and this boundary term injected per
-    step was the whole fp64-on-chip parity gap (scripts/f64_oracle.py).
+    Uses the working-precision sine (:mod:`..ops.trig`), faithful in
+    float64 on every backend: this boundary term is injected every step,
+    so an f32-accurate f64 sine would be the whole fp64 parity gap
+    against the NumPy golden.
     """
     from ..ops.trig import sin_wp
     return p.amp * sin_wp(2.0 * jnp.pi * rtime / p.tide_period)
@@ -291,7 +292,7 @@ def derive_masks(tmask, dtype):
     """The six 0/1 float masks of the step, from the int8/int32 tmask.
 
     Only pointwise compares touch bools — shifted masks roll the float
-    arrays (Mosaic cannot shuffle i1 vectors)."""
+    arrays."""
     t_wet = (tmask == 1).astype(dtype)
     out_f = (tmask == -1).astype(dtype)
     u_wet = t_wet * st.xp(t_wet)
@@ -311,18 +312,25 @@ def encode_masks(tmask) -> jnp.ndarray:
     return st.pack_mask_bits(derive_masks(tmask, jnp.float32))
 
 
+@jax.jit
+def _face_ssh(sshn_t, t_wet):
+    """``(sshn_u, sshn_v)`` as ONE program.  Eagerly, each roll of the
+    stacked global array is its own program with a collective permute;
+    several of those in flight at once can deadlock the CPU mesh's
+    collective rendezvous."""
+    return next_sshu(sshn_t, t_wet), next_sshv(sshn_t, t_wet)
+
+
 def decode_masks(codes, dtype):
     """Unpack :func:`encode_masks` — shifts and ands only, no rolls."""
     return st.unpack_mask_bits(codes, 6, dtype)
 
 
 class StepPrep(NamedTuple):
-    """Time-invariant per-window quantities hoisted out of the sub-step
+    """Time-invariant per-block quantities hoisted out of the sub-step
     loop: decoded masks, their derived booleans/weights, total-depth
-    faces and Flather coefficients.  The fused kernel computes one
-    StepPrep per VMEM tile (K sub-steps reuse it); the jnp K-sweep
-    computes one per sweep.  Hoisting these cut ~10% of the sub-step's
-    VPU ops (the kernel is compute-bound: doc/performance.md)."""
+    faces and Flather coefficients.  A K-step sweep computes one
+    StepPrep and its K sub-steps reuse it."""
     t_wet: object
     u_wet: object
     v_wet: object
@@ -380,27 +388,12 @@ def make_prep(mask_codes, depth, p: Params, dtype, masks=None,
                     ht, hu, hv, cu, cv)
 
 
-def _recip_exact(x):
-    return 1.0 / x
-
-
-def _recip_fast(x):
-    """Hardware approximate reciprocal + one Newton step (~f32 accurate);
-
-    the VPU's divide is many times slower than multiply, and the step's
-    two 1/dep divisions are a visible slice of its op budget."""
-    from jax.experimental import pallas as pl
-    r = pl.reciprocal(x, approx=True)
-    return r * (2.0 - x * r)
-
-
 def step_math(sshn_t, un, vn, mask_codes, p: Params, dx, dy, fcor, depth,
-              forcing, exch_mid=None, recip=_recip_exact, masks=None,
+              forcing, exch_mid=None, masks=None,
               prep: StepPrep | None = None):
-    """One complete NEMOLite2D step as a pure stencil chain.
-
-    Shared by the jnp path (full shard blocks) and the Pallas fused
-    kernel (per-tile windows) — the physics is written once.
+    """One complete NEMOLite2D step as a pure stencil chain over shard
+    blocks — the physics is written once, for the one-step and the
+    K-step paths alike.
     ``mask_codes`` is the static int8 bitfield from :func:`encode_masks`:
     one byte per point of HBM traffic instead of six float mask arrays
     (roofline economics).  Total input reach is 2 cells, so with fresh
@@ -408,7 +401,28 @@ def step_math(sshn_t, un, vn, mask_codes, p: Params, dx, dy, fcor, depth,
     ``exch_mid=None``).  ``masks``/``prep`` optionally supply the
     decoded masks / full hoisted constants (:func:`make_prep`) so
     multi-step (temporal-blocking) callers pay for them once.
+
+    Compiled for a CUDA device, the calls that
+    :func:`.nemolite2d_kernel.covers` (float32, flat depth, square
+    cells, no mid-step exchange) run as one fused kernel instead
+    (:mod:`.nemolite2d_kernel`); its gradient is this function's.
     """
+    from . import nemolite2d_kernel as fused
+    consts = dict(p=p, dx=dx, dy=dy, fcor=fcor, depth=depth)
+    if exch_mid is None and fused.covers(sshn_t, depth, dx, dy):
+        return fused.step(functools.partial(plain_step, **consts),
+                          sshn_t, un, vn, mask_codes,
+                          jnp.asarray(forcing, sshn_t.dtype), p=p, dx=dx,
+                          fcor=fcor, depth=depth)
+    return plain_step(sshn_t, un, vn, mask_codes, forcing, **consts,
+                      exch_mid=exch_mid, masks=masks, prep=prep)
+
+
+def plain_step(sshn_t, un, vn, mask_codes, forcing, *, p: Params, dx, dy,
+               fcor, depth, exch_mid=None, masks=None,
+               prep: StepPrep | None = None):
+    """:func:`step_math` in ``jax.numpy`` on every platform: the fused
+    kernel's reference and its gradient."""
     dtype = sshn_t.dtype
     pr = prep if prep is not None else make_prep(mask_codes, depth, p,
                                                  dtype, masks=masks,
@@ -430,8 +444,8 @@ def step_math(sshn_t, un, vn, mask_codes, p: Params, dx, dy, fcor, depth,
         # square-cell fast path: the wet-cell select folds into the
         # hoisted prefactor (pr.cw = t_wet * rdt/dx — exactly rdt/dx at
         # wet cells, exactly 0 at dry, so dry cells keep sshn_t and wet
-        # cells match continuity() bitwise; the step is VPU-bound and
-        # this is one array multiply for a scalar-multiply + select)
+        # cells match continuity() bitwise; one array multiply for a
+        # scalar-multiply + select)
         fx = depu * un
         fy = depv * vn
         ssha_t = sshn_t - pr.cw * ((fx - st.xm(fx)) + (fy - st.ym(fy)))
@@ -445,10 +459,10 @@ def step_math(sshn_t, un, vn, mask_codes, p: Params, dx, dy, fcor, depth,
         ssha_t = exch_mid(ssha_t)
 
     ua = momentum_u(un, vn, sshn_t, ssha_t, sshn_u, ht, hu, depv,
-                    p=p, dx=dx, dy=dy, fcor=fcor, recip=recip,
+                    p=p, dx=dx, dy=dy, fcor=fcor,
                     dep_u=depu, z=z, fric=pr.fu)
     va = momentum_v(un, vn, sshn_t, ssha_t, sshn_v, ht, hv, depu,
-                    p=p, dx=dx, dy=dy, fcor=fcor, recip=recip,
+                    p=p, dx=dx, dy=dy, fcor=fcor,
                     dep_v=depv, z=z, fric=pr.fv)
     ua = jnp.where(pr.flu_b, pr.cu * sshn_u, ua)
     va = jnp.where(pr.flv_b, pr.cv * sshn_v, va)
@@ -510,31 +524,22 @@ class NemoLite2D:
         # reads: wet/dry/outside classification with the uniform-shard
         # padding forced to dry so padded cells are inert.  All derived
         # masks (face wetness, Flather faces, forcing cells) are
-        # recomputed on the VPU each step — compute is ~free next to the
-        # HBM bytes they would otherwise cost (SURVEY §6: HBM roofline).
+        # recomputed each step — compute is ~free next to the memory
+        # bytes they would otherwise cost (SURVEY §6: HBM roofline).
         tm = grid.tmask
         valid = self._valid_cell_mask()
         tmask_i8 = jnp.where(valid, tm, 0).astype(jnp.int8)
         self._tmask_i8 = jax.device_put(tmask_i8, grid.sharding)
-        self._mask_codes = jax.device_put(encode_masks(self._tmask_i8),
-                                          grid.sharding)
+        # one program, not one per roll (see _face_ssh)
+        self._mask_codes = jax.device_put(
+            jax.jit(encode_masks)(self._tmask_i8), grid.sharding)
         self._t_wet = ((tmask_i8 == 1)).astype(dtype)
         # Coriolis: f-plane scalar from the constant latitude
         # (grid_mod.f90:512-523 fixes gphi = 50 degrees)
         self._fcor = float(2.0 * params.omega * np.sin(50.0 * params.d2r))
         self._step_cache = {}
         self._istep0 = 0
-        #: use the fused Pallas kernel for the step (requires halo>=2,
-        #: since the kernel contains no mid-step exchange)
-        self.use_pallas = False
-        self._pallas_interpret = False
-        self._pallas_tile_rows = None
         self._sweep_K = 1
-        #: halo transport for the Pallas step: "ppermute" (XLA
-        #: collectives around the kernel) or "fused" (remote-DMA
-        #: exchange INSIDE the sweep kernel, y-phase overlapped with
-        #: interior tiles — the reference's TODO #58 done TPU-natively)
-        self._transport = "ppermute"
 
     def _valid_cell_mask(self):
         """Cells representing a real global cell (internal, or a halo cell
@@ -551,72 +556,36 @@ class NemoLite2D:
         return jnp.asarray(my[:, None] & mx[None, :])
 
     # ------------------------------------------------------------------
-    def enable_pallas(self, interpret: bool = False,
-                      tile_rows: int | None = None,
-                      steps_per_sweep: int = 1,
-                      transport: str = "ppermute") -> None:
-        """Switch the step to the fused Pallas kernel (the fast path).
-
-        Needs a depth-2K halo: the kernel has no mid-step exchange, so
-        the whole K-step chain must fit in the shard halo
-        (build(halo_width=2*steps_per_sweep)).
-
-        ``steps_per_sweep`` > 1 is temporal blocking: K steps advance in
-        one HBM pass (ops/pallas_step.py), and the halo exchange runs at
-        depth 2K once per K steps — a communication-AVOIDING schedule
-        the reference cannot express (its depth is hardwired to 1,
-        parallel_comms_mod.f90:48).
-
-        ``transport="fused"`` moves the halo exchange INSIDE the sweep
-        kernel (remote DMA; interior tiles stream under the in-flight
-        y-phase rows — ops/sweep.py).  Requires halo_width and tile_ny
-        to be multiples of 8 (build(halo_width=8, pallas=True))."""
-        if transport not in ("ppermute", "fused"):
-            raise ValueError(f"unknown transport {transport!r}")
-        from ..ops.fastpath import enable_fast_path
-        prev = (self.use_pallas, self._pallas_interpret,
-                self._pallas_tile_rows, self._sweep_K, self._transport)
-        try:
-            enable_fast_path(self, reach=2, interpret=interpret,
-                             tile_rows=tile_rows,
-                             steps_per_sweep=steps_per_sweep)
-            self._transport = transport
-            if transport == "fused":
-                self._make_fused(self._sweep_K)  # fail fast on bad configs
-        except Exception:
-            # leave the model as it was, not half-configured
-            (self.use_pallas, self._pallas_interpret,
-             self._pallas_tile_rows, self._sweep_K,
-             self._transport) = prev
-            self._step_cache.clear()
-            raise
-
     def set_steps_per_exchange(self, steps_per_sweep: int) -> None:
-        """Communication avoidance on the PLAIN jnp path: K chained
-        ``step_math`` calls per depth-2K exchange — the same schedule
-        the fused kernel uses, without Pallas (ops/fastpath.py)."""
-        from ..ops.fastpath import set_steps_per_exchange
+        """Communication avoidance: K chained ``step_math`` calls per
+        depth-2K exchange (ops/sweep.py)."""
+        from ..ops.sweep import set_steps_per_exchange
         set_steps_per_exchange(self, reach=2,
                                steps_per_sweep=steps_per_sweep)
 
-    def _make_jnp_sweep(self, K: int):
-        """K-step chained jnp sweep with the fused kernel's signature."""
+    def _make_sweep(self, K: int):
+        """K chained ``step_math`` calls after one depth-2K exchange;
+        masks, weights and face depths are hoisted out of the K
+        sub-steps.  ``sweep((sshn, un, vn), (codes[, ht]), forcing)``
+        with ``forcing`` the K per-sub-step boundary values."""
+        from ..ops.sweep import make_stencil_sweep
         p, dx, dy = self.p, self.grid.dx, self.grid.dy
 
-        def sweep(sshn, un, vn, mask_codes, forcing, ht=None):
-            # hoist the loop invariants (masks, weights, face depths)
-            # out of the K sub-steps, like the fused kernel's per-tile
-            # prepare()
-            dep = ((ht, st.avg_x(ht), st.avg_y(ht)) if ht is not None
+        def prepare(aux):
+            codes, *ht = aux
+            dep = ((ht[0], st.avg_x(ht[0]), st.avg_y(ht[0])) if ht
                    else self.depth)
-            prep = make_prep(mask_codes, dep, p, sshn.dtype, dx=dx, dy=dy)
-            s = (sshn, un, vn)
-            for k in range(K):
-                s = step_math(*s, mask_codes, p, dx, dy, self._fcor, dep,
-                              forcing=forcing[k], exch_mid=None,
-                              prep=prep)
-            return s
-        return sweep
+            return codes, dep, make_prep(codes, dep, p, self.grid.dtype,
+                                         dx=dx, dy=dy)
+
+        def stepf(state, prepared, forcing):
+            codes, dep, prep = prepared
+            return step_math(*state, codes, p, dx, dy, self._fcor, dep,
+                             forcing=forcing, prep=prep)
+
+        return make_stencil_sweep(stepf, spec=self.grid.halo_spec,
+                                  steps_per_sweep=K, reach=2,
+                                  prepare_fn=prepare)
 
     # ------------------------------------------------------------------
     def set_initial_ssh(self, ssh_global: np.ndarray) -> None:
@@ -626,8 +595,8 @@ class NemoLite2D:
         self.sshn_t.set_data(stacked)
         self.sshn_t.halo_exchange(1)
         t_wet = self._t_wet
-        self.sshn_u.data = next_sshu(self.sshn_t.data, t_wet)
-        self.sshn_v.data = next_sshv(self.sshn_t.data, t_wet)
+        self.sshn_u.data, self.sshn_v.data = _face_ssh(self.sshn_t.data,
+                                                       t_wet)
 
     # ------------------------------------------------------------------
     def _block_step(self, exch, istep, sshn_t, un, vn, mask_codes,
@@ -639,27 +608,18 @@ class NemoLite2D:
         if dep is None:
             dep = self.depth
 
-        # one coalesced exchange for the whole state (4 collectives);
-        # the fused transport exchanges inside the kernel instead
-        if not (self.use_pallas and self._transport == "fused"):
-            sshn_t, un, vn = exch((sshn_t, un, vn))
+        # one coalesced exchange for the whole state (4 collectives)
+        sshn_t, un, vn = exch((sshn_t, un, vn))
 
         rtime = (istep + 1).astype(sshn_t.dtype) * p.rdt
         forcing = tidal_forcing(rtime, p)
-
-        if self.use_pallas:
-            fused = self._make_fused(1)
-            return fused(sshn_t, un, vn, mask_codes, forcing,
-                         ht=dep if self._ht is not None else None)
-        # (fused transport always goes through _block_sweep: K >= 1)
 
         # With halo width 1 the new surface must cross shard seams
         # between continuity and momentum (the reference's
         # between-dependent-kernels exchange, SURVEY §3.6).  With halo
         # width >= 2 the deep halo lets every shard compute ssha
         # redundantly one ring into its halo, so the whole step is a
-        # single communication-free stencil chain — the fused-kernel
-        # fast path.
+        # single communication-free stencil chain.
         exch_mid = (lambda a: exch((a,))[0]) if h < 2 else None
         return step_math(sshn_t, un, vn, mask_codes, p, dx, dy, self._fcor,
                          dep, forcing, exch_mid=exch_mid)
@@ -678,12 +638,10 @@ class NemoLite2D:
         from the freshly-exchanged block and pasted over the interior
         result.  Requires the deep-halo (h>=2) communication-free chain.
 
-        Measured tradeoff (v5e, 1024^2/chip): the band recompute costs
-        ~170us of unfused small-slice jnp work while a depth-2 halo
-        exchange moves only ~100KB/field over ICI (~us) — so this mode
-        only pays when communication is latency-bound (multi-host DCN
-        hops), not within a slice.  It is therefore opt-in
-        (``step_program(n, overlap=True)``), kept correct by tests.
+        The band recompute is extra small-slice work, so this mode only
+        pays when communication is latency-bound; it is opt-in
+        (``step_program(n, overlap=True)``) and kept correct by tests.
+        Its cost on the GPU is not measured.
         """
         p = self.p
         dx, dy = self.grid.dx, self.grid.dy
@@ -706,13 +664,8 @@ class NemoLite2D:
 
         # collectives — and, independently, the stale-interior compute
         fresh = exch((sshn_t, un, vn))
-        if self.use_pallas:
-            fused = self._make_fused(1)
-            stale = fused(sshn_t, un, vn, mask_codes, forcing,
-                          ht=dep if self._ht is not None else None)
-        else:
-            stale = run(sshn_t, un, vn, mask_codes,
-                        ht=dep if self._ht is not None else None)
+        stale = run(sshn_t, un, vn, mask_codes,
+                    ht=dep if self._ht is not None else None)
 
         # boundary bands recomputed from the fresh block.  Valid target
         # cells sit >= 2 from each band-slice edge; bands cover every
@@ -744,53 +697,20 @@ class NemoLite2D:
         paste_cols(h + w - (B - 2))
         return tuple(out)
 
-    def _make_fused(self, K: int):
-        """The fused kernel for this model's static configuration."""
-        from ..ops.pallas_step import make_fused_step
-        spec = self.grid.halo_spec
-        return make_fused_step(
-            spec.local_ny, spec.local_nx, str(self.grid.dtype), self.p,
-            self.grid.dx, self.grid.dy, self._fcor,
-            self.depth if self._ht is None else 0.0,
-            tile_rows=self._pallas_tile_rows,
-            interpret=self._pallas_interpret, steps_per_sweep=K,
-            variable_bathy=self._ht is not None,
-            exchange_spec=spec if self._transport == "fused" else None,
-            repx=spec.repx, repy=spec.repy)
-
-    def _block_sweep(self, exch, fused, K, istep0, sshn_t, un, vn,
-                     mask_codes, dep=None):
-        """K fused steps after ONE depth-2K exchange (temporal blocking).
-
-        With the fused transport the exchange happens inside the kernel
-        itself and ``exch`` is skipped."""
-        p = self.p
-        if self._transport != "fused":
-            sshn_t, un, vn = exch((sshn_t, un, vn))
-        rtimes = (istep0 + 1 + jnp.arange(K)).astype(sshn_t.dtype) * p.rdt
-        return fused(sshn_t, un, vn, mask_codes, tidal_forcing(rtimes, p),
-                     ht=dep if self._ht is not None else None)
-
     def step_program(self, nsteps: int, overlap: bool = False,
                      remat_chunk: int | None = None):
         """``remat_chunk`` bounds reverse-mode AD memory through the
-        time loop (``ops/adjoint.py``); needs the plain jnp path."""
-        if remat_chunk is not None and (self.use_pallas
-                                        or self._sweep_K > 1):
+        time loop (``ops/adjoint.py``); needs the one-step path."""
+        if remat_chunk is not None and self._sweep_K > 1:
             raise ValueError(
-                "remat_chunk needs the plain differentiable jnp path: "
-                "build the flagship without pallas/steps_per_sweep")
+                "remat_chunk needs the one-step differentiable path: "
+                "build the flagship without steps_per_sweep")
         grid = self.grid
         if overlap:
             spec = grid.halo_spec
             if spec.repx > 1 or spec.repy > 1:
                 raise NotImplementedError(
                     "overlap mode supports one tile per device")
-            if self.use_pallas and self._transport == "fused":
-                raise ValueError(
-                    "overlap mode is redundant with transport='fused' "
-                    "(the kernel already overlaps its in-flight y rows "
-                    "with interior tiles) and would exchange twice")
             if spec.halo < 2:
                 raise ValueError("overlap mode needs halo_width >= 2")
             if spec.tile_nx < 8 or spec.tile_ny < 8:
@@ -798,50 +718,40 @@ class NemoLite2D:
         if overlap and self._sweep_K > 1:
             raise ValueError(
                 "overlap mode runs one step at a time; rebuild with "
-                "steps_per_sweep=1 (temporal blocking already amortises "
+                "steps_per_sweep=1 (the K-step sweep already amortises "
                 "the exchange it would overlap)")
         key = (nsteps, overlap, remat_chunk)
         if key not in self._step_cache:
+            from ..ops.sweep import run_steps
             h = grid.halo_spec.halo
             exch = exchange_multi_fn(grid.halo_spec, depth=min(h, 2) or 1)
             stepper = (self._block_step_overlap if overlap
                        else self._block_step)
-            K = self._sweep_K if not overlap else 1
-            if K > 1:
-                fusedK = (self._make_fused(K) if self.use_pallas
-                          else self._make_jnp_sweep(K))
-                exchK = exchange_multi_fn(grid.halo_spec, depth=2 * K)
+            K = self._sweep_K
+            sweepK = self._make_sweep(K) if K > 1 else None
             have_ht = self._ht is not None
 
             def body(istep0, state, mask_codes, *bathy):
                 dep = bathy[0] if have_ht else None
-                base = 0
-                if remat_chunk is not None:
-                    from ..ops.adjoint import checkpointed_fori
-
-                    def one(i, s):
-                        return stepper(exch, istep0 + i, *s, mask_codes,
-                                       dep=dep)
-                    return checkpointed_fori(nsteps, one, state,
-                                             remat_chunk)
-                if K > 1 and nsteps >= K:
-                    def sweep(j, s):
-                        return self._block_sweep(exchK, fusedK, K,
-                                                 istep0 + j * K, *s,
-                                                 mask_codes, dep=dep)
-                    state = lax.fori_loop(0, nsteps // K, sweep, state)
-                    base = (nsteps // K) * K
-                if nsteps - base == 0:
-                    return state
 
                 def one(i, s):
-                    return stepper(exch, istep0 + base + i, *s, mask_codes,
+                    return stepper(exch, istep0 + i, *s, mask_codes,
                                    dep=dep)
-                return lax.fori_loop(0, nsteps - base, one, state)
+
+                if remat_chunk is not None:
+                    from ..ops.adjoint import checkpointed_fori
+                    return checkpointed_fori(nsteps, one, state,
+                                             remat_chunk)
+
+                def sweep(j, s):
+                    rtimes = (istep0 + j * K + 1 + jnp.arange(K)).astype(
+                        s[0].dtype) * self.p.rdt
+                    return sweepK(s, (mask_codes,) + bathy,
+                                  tidal_forcing(rtimes, self.p))
+
+                return run_steps(nsteps, K, state, sweep, one)
 
             blk = P("y", "x")
-            # check_vma=False: pallas_call outputs don't carry varying-
-            # mesh-axis metadata; the specs are explicit anyway.
             smapped = jax.shard_map(
                 body, mesh=grid.mesh,
                 in_specs=(P(), (blk,) * 3, blk) + ((blk,) if have_ht else ()),
@@ -858,8 +768,8 @@ class NemoLite2D:
         self._istep0 += nsteps
         # keep the derived U/V-face ssh fields in sync for API users
         self.sshn_t.halo_exchange(1)
-        self.sshn_u.data = next_sshu(self.sshn_t.data, self._t_wet)
-        self.sshn_v.data = next_sshv(self.sshn_t.data, self._t_wet)
+        self.sshn_u.data, self.sshn_v.data = _face_ssh(self.sshn_t.data,
+                                                       self._t_wet)
 
     @property
     def bathymetry(self):
@@ -881,34 +791,30 @@ class NemoLite2D:
 def build(gnx: int = 256, gny: int = 256, ndomains=None,
           params: Params = Params(), depth: float = 100.0,
           open_north: bool = True, dtype=None,
-          halo_width: int = 1, pallas: bool = False,
-          steps_per_sweep: int = 1) -> NemoLite2D:
+          halo_width: int = 2, steps_per_sweep: int = 1) -> NemoLite2D:
     """Convenience constructor: grid + tmask + model.
 
-    ``halo_width=2`` selects the deep-halo fast path: one exchange per
-    step, no mid-step communication (redundant ring compute instead).
-    ``pallas=True`` additionally swaps the step for the fused Pallas
-    kernel (implies halo_width=2 and TPU-tile-aligned shards).
-    ``steps_per_sweep=K`` adds temporal blocking on top: K steps per
-    HBM pass and per (depth-2K) halo exchange.
+    The default ``halo_width=2`` is the deep-halo path: one exchange per
+    step, no mid-step communication (redundant ring compute instead),
+    and on a CUDA device the fused step kernel.  ``halo_width=1`` is
+    the reference's schedule: the new surface is exchanged between
+    continuity and momentum, so the step stays on the plain ``jnp``
+    path on every platform.
+    ``steps_per_sweep=K`` runs K steps per (depth-2K) halo exchange and
+    deepens the halo to match.
     ``depth`` is a scalar (flat bathymetry, trace-time constant) or a
     global (gny, gnx) T-point depth array (variable bathymetry,
-    streamed per point on both the jnp and Pallas paths).
+    streamed per point).
     """
-    from ..ops.fastpath import fast_path_grid_args
-    halo_width, align, align_y = fast_path_grid_args(
-        pallas, steps_per_sweep, 2, halo_width)
+    from ..ops.sweep import sweep_halo
+    halo_width = sweep_halo(steps_per_sweep, 2, halo_width)
     grid = dl.Grid(dl.ARAKAWA_C,
                    (dl.BC_EXTERNAL, dl.BC_EXTERNAL, dl.BC_NONE),
                    dl.OFFSET_NE, dtype=dtype)
-    grid.decompose(gnx, gny, ndomains=ndomains, halo_width=halo_width,
-                   align=align, align_y=align_y)
+    grid.decompose(gnx, gny, ndomains=ndomains, halo_width=halo_width)
     dl.grid_init(grid, 1000.0, 1000.0, default_tmask(gnx, gny, open_north))
     model = NemoLite2D(grid, params, depth)
-    if pallas:
-        model.enable_pallas(steps_per_sweep=steps_per_sweep)
-    elif steps_per_sweep > 1:
-        # comm avoidance on the jnp path (previously silently ignored)
+    if steps_per_sweep > 1:
         model.set_steps_per_exchange(steps_per_sweep)
     return model
 
@@ -919,7 +825,8 @@ def main(argv=None):
     checksums every report interval — drive with
     ``python -m dl_esm_inf_tpu.models.nemolite2d [N] [steps] [hist.nc]``
     (the optional third argument writes a NetCDF history file: one
-    ssh/u/v record per report interval)."""
+    ssh/u/v record per report interval).  Returns the model after its
+    run."""
     import sys
     import time as _time
 
@@ -931,12 +838,10 @@ def main(argv=None):
     n = int(args[0]) if args else 258
     nsteps = int(args[1]) if len(args) > 1 else 100
     hist_path = args[2] if len(args) > 2 else None   # NetCDF history
-    use_pallas = _jax.default_backend() == "tpu"
-    m = build(n, n, pallas=use_pallas,
-              steps_per_sweep=4 if use_pallas else 1)
+    m = build(n, n)
     if nsteps < 1:
         print("nothing to do (nsteps < 1)")
-        return
+        return m
     m.set_initial_ssh(gaussian_eta(n, n, amp=0.2))
     hist = None
     if hist_path:
@@ -978,12 +883,12 @@ def main(argv=None):
         dt = dt_total
         rate = f"{n * n * timed_steps / dt / 1e6:.1f} Mpt/s post-warmup"
         print(f"{nsteps} steps of {n}x{n}; {timed_steps} timed in "
-              f"{dt:.3f}s ({rate}) [backend={_jax.default_backend()}, "
-              f"pallas={m.use_pallas}]")
+              f"{dt:.3f}s ({rate}) [backend={_jax.default_backend()}]")
     else:
         print(f"{nsteps} steps of {n}x{n} done "
               f"(too few full chunks to time past warmup) "
-              f"[backend={_jax.default_backend()}, pallas={m.use_pallas}]")
+              f"[backend={_jax.default_backend()}]")
+    return m
 
 
 if __name__ == "__main__":

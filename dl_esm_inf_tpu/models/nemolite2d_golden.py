@@ -1,7 +1,7 @@
 """Independent NumPy golden for the NEMOLite2D physics.
 
-The model's jnp and Pallas paths share ``step_math`` (by design: the
-physics is written once), so an error in its formulation would pass
+The model's one-step and K-step paths share ``step_math`` (by design:
+the physics is written once), so an error in its formulation would pass
 every path-equality and invariance test.  This module re-derives the
 whole step — next_sshu/v, continuity, donor-cell advection, viscosity,
 Coriolis, pressure gradient, semi-implicit bottom friction, bc_ssh,
@@ -181,3 +181,26 @@ def golden_run(tmask, ssh0, nsteps, p, dx, dy, depth, istep0=0):
                          forcing)
     sl = slice(PAD, -PAD)
     return {"sshn": ssh[sl, sl], "un": u[sl, sl], "vn": v[sl, sl]}
+
+
+def compare(got: dict, want: dict, *, rtol: float, atol: float) -> dict:
+    """Per-field agreement of a model state with the golden, by the
+    ``numpy.testing.assert_allclose`` rule ``|got - want| <= atol +
+    rtol * |want|``.  Returns ``{field: {"max_abs", "max_rel",
+    "finite", "ok"}}`` for every field of ``want``; a field is ``ok``
+    only if every value is finite and within the bound."""
+    out = {}
+    for k, w in want.items():
+        g = np.asarray(got[k], np.float64)
+        w = np.asarray(w, np.float64)
+        if g.shape != w.shape:
+            raise ValueError(f"{k}: shape {g.shape} != golden {w.shape}")
+        err = np.abs(g - w)
+        finite = bool(np.all(np.isfinite(g)))
+        out[k] = {"max_abs": float(err.max()),
+                  "max_rel": float((err / np.maximum(np.abs(w),
+                                                      1e-300)).max()),
+                  "finite": finite,
+                  "ok": finite and bool(np.all(err <= atol
+                                               + rtol * np.abs(w)))}
+    return out

@@ -12,7 +12,7 @@ runnable three ways:
 
 * eagerly, one ``invoke`` per kernel (the PSyclone-compatibility tier);
 * as one jnp program with statically planned exchanges (``Schedule()``);
-* as ONE fused Pallas sweep kernel with a single up-front exchange
+* as ONE fused sweep with a single up-front exchange
   (``Schedule.fused()`` — the tier PSyclone cannot generate).
 
 The physics formulas are SHARED with :mod:`.nemolite2d` (the same
@@ -210,7 +210,7 @@ class NemoLite2DPsy:
     def __init__(self, gnx: int, gny: int, params: nl.Params = nl.Params(),
                  depth: float = 100.0, halo_width: int = 5,
                  ndomains=None, align: int | None = None,
-                 align_y: int = 8):
+                 align_y: int = 1):
         grid = Grid(ARAKAWA_C, (BC_EXTERNAL, BC_EXTERNAL, BC_NONE),
                     OFFSET_NE)
         grid.decompose(gnx, gny, ndomains=ndomains,
@@ -270,12 +270,11 @@ class NemoLite2DPsy:
         f = Field(self.grid, T_POINTS, init_global_data=eta0)
         self.sshn_t.data = f.data
 
-    def run(self, nsteps: int, *, fused: bool = False,
-            interpret: bool = False) -> None:
+    def run(self, nsteps: int, *, fused: bool = False) -> None:
         if fused:
-            # whole-run driver: nsteps Mosaic-fused steps in ONE
-            # dispatch, with the per-step forcing series bound up front
-            runp = self._sched.fused_program(nsteps, interpret=interpret)
+            # whole-run driver: nsteps fused steps in ONE dispatch, with
+            # the per-step forcing series bound up front
+            runp = self._sched.fused_program(nsteps)
             runp(scalars=[self._scalars_at(self._step + k)
                           for k in range(nsteps)])
             self._step += nsteps

@@ -28,9 +28,9 @@ Discrete design (what makes the seam exact rather than merely plausible):
   and the child interior equals the parent window to the last bit —
   the nesting analogue of the decomposition-invariance invariant.
 
-Scope: the linear :class:`GravityWaveModel` on the plain jnp path
-(the glue must run every parent step, so deep-halo sweeps / Pallas
-temporal blocking are rejected — enable them on the parent AFTER
+Scope: the linear :class:`GravityWaveModel` on the one-step path
+(the glue must run every parent step, so K-step sweeps are
+rejected — enable them on the parent AFTER
 `step_program` if you accept per-K-step coupling).  Land inside the
 child window is supported (the parent tmask is refined
 piecewise-constant); the boundary ring itself must be wet.
@@ -45,7 +45,6 @@ from jax import lax
 
 import dl_esm_inf_tpu as dl
 from ..core import layout
-from ..ops import stencils as st
 from .gravity_wave import GravityWaveModel
 
 
@@ -99,7 +98,7 @@ class OneWayNest:
     Parameters
     ----------
     parent : GravityWaveModel
-        Plain jnp path (no pallas / steps_per_sweep).
+        One-step path (no steps_per_sweep).
     origin : (pj0, pi0)
         Parent T-cell of the child window's south-west corner.
     shape : (ph, pw)
@@ -121,11 +120,11 @@ class OneWayNest:
     def __init__(self, parent: GravityWaveModel, *, origin, shape,
                  ratio: int, two_way: bool = False, child_ndomains=None,
                  child_ndomainx=None, child_ndomainy=None):
-        if parent.use_pallas or parent._sweep_K > 1:
+        if parent._sweep_K > 1:
             raise ValueError(
-                "one-way nesting needs the parent on the plain jnp path "
+                "one-way nesting needs the parent on the one-step path "
                 "(the boundary glue runs every parent step); build the "
-                "parent without pallas/steps_per_sweep")
+                "parent without steps_per_sweep")
         self.parent = parent
         self.ratio = r = int(ratio)
         if r < 1:
@@ -183,9 +182,6 @@ class OneWayNest:
         t_upd = np.asarray(self.child._t_upd) * (1 - ring_stacked)
         self.child._t_upd = jax.device_put(jnp.asarray(t_upd, dtype),
                                            cgrid.sharding)
-        self.child._mask_codes = jax.device_put(
-            st.pack_mask_bits((self.child._t_upd, self.child._u_wet,
-                               self.child._v_wet)), cgrid.sharding)
 
         # Static plans: ring scatter targets + parent gather weights.
         ry, rx = np.nonzero(ring)
@@ -289,8 +285,7 @@ def _make_nest_program(parent, nests, nsteps: int):
 
     def prep(model, ns):
         res[id(model)] = (model.step_program(1),
-                          (model._t_upd, model._u_wet, model._v_wet,
-                           model._mask_codes))
+                          (model._t_upd, model._u_wet, model._v_wet))
         for n in ns:
             prep(n.child, n._subnests)
 

@@ -20,11 +20,6 @@ The level couplings are cumulative sums along the (unsharded) level
 axis — pure per-chip compute; the horizontal stencils are the same
 reach-1 C-grid operators as every other client.  For N=2 this reduces
 exactly to models/twolayer.py (pinned by test).
-
-The fused Pallas path unrolls the (static) layer count onto the sweep
-engine's n-field state: 3N two-dimensional windows per tile, the level
-couplings as per-layer Python-loop accumulations traced into the kernel
-— so even the multi-level client runs at one HBM pass per K steps.
 """
 from __future__ import annotations
 
@@ -32,7 +27,6 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-from jax import lax
 from jax.sharding import PartitionSpec as P
 
 import dl_esm_inf_tpu as dl
@@ -79,13 +73,7 @@ class NLayerModel:
         self._t_upd = (wet_t & geo).astype(dtype)
         self._u_wet = (wet_t & (st.xp(tm) == 1)).astype(dtype)
         self._v_wet = (wet_t & (st.yp(tm) == 1)).astype(dtype)
-        self._mask_codes = jax.device_put(
-            st.pack_mask_bits((self._t_upd, self._u_wet, self._v_wet)),
-            grid.sharding)
         self._step_cache = {}
-        self.use_pallas = False
-        self._pallas_interpret = False
-        self._pallas_tile_rows = None
         self._sweep_K = 1
 
     # ------------------------------------------------------------------
@@ -131,127 +119,37 @@ class NLayerModel:
         eta, u, v = exch((eta, u, v))
         return self._step_math(eta, u, v, t_upd, u_wet, v_wet)
 
-    def _layer_step(self, etas, us, vs, t_upd, u_wet, v_wet):
-        """The same step as per-layer 2D arrays (the sweep kernel's
-        form: a static Python unroll over layers, no level axis)."""
-        dt = self.dt
-        dx, dy = self.grid.dx, self.grid.dy
-        L = self.layers
-        pk = None
-        new_us, new_vs, divs = [], [], []
-        for k in range(L):
-            contrib = float(self._pw[k]) * etas[k]
-            pk = contrib if pk is None else pk + contrib
-            un = (us[k] - dt * st.ddx(pk, dx)) * u_wet
-            vn = (vs[k] - dt * st.ddy(pk, dy)) * v_wet
-            new_us.append(un)
-            new_vs.append(vn)
-            divs.append(st.ddx_back(un, dx) + st.ddy_back(vn, dy))
-        acc = None
-        new_etas = [None] * L
-        for k in range(L - 1, -1, -1):
-            contrib = float(self._H[k]) * divs[k]
-            acc = contrib if acc is None else acc + contrib
-            new_etas[k] = jnp.where(t_upd > 0, etas[k] - dt * acc,
-                                    etas[k])
-        return tuple(new_etas) + tuple(new_us) + tuple(new_vs)
-
     # ------------------------------------------------------------------
-    def enable_pallas(self, interpret: bool = False,
-                      tile_rows: int | None = None,
-                      steps_per_sweep: int = 1) -> None:
-        """Fused 3N-field stencil sweep (ops/sweep.py; reach 1, K<=8):
-        the static layer count unrolls onto the engine's n-field
-        state."""
-        from ..ops.fastpath import enable_fast_path
-        enable_fast_path(self, reach=1, interpret=interpret,
-                         tile_rows=tile_rows,
-                         steps_per_sweep=steps_per_sweep)
-
     def set_steps_per_exchange(self, steps_per_sweep: int) -> None:
-        """Comm avoidance on the jnp path: K chained steps per depth-K
-        exchange (no Pallas; ops/fastpath.py)."""
-        from ..ops.fastpath import set_steps_per_exchange
+        """Comm avoidance: K chained steps per depth-K exchange
+        (ops/sweep.py)."""
+        from ..ops.sweep import set_steps_per_exchange
         set_steps_per_exchange(self, reach=1,
                                steps_per_sweep=steps_per_sweep)
-
-    def _make_sweep(self, K: int):
-        from ..ops.sweep import make_stencil_sweep
-        spec = self.grid.halo_spec
-        dtype = jnp.dtype(self.eta.dtype)
-        L = self.layers
-
-        def prepare(aux):
-            return st.unpack_mask_bits(aux[0], 3, dtype)
-
-        def stepf(state, prepared, scalars):
-            return self._layer_step(state[:L], state[L:2 * L],
-                                    state[2 * L:], *prepared)
-
-        return make_stencil_sweep(
-            stepf, ly=spec.local_ny, lx=spec.local_nx,
-            state_dtypes=(dtype,) * (3 * L), aux_dtypes=(jnp.int8,),
-            n_scalars=0, steps_per_sweep=K, reach=1, prepare_fn=prepare,
-            tile_rows=self._pallas_tile_rows,
-            interpret=self._pallas_interpret,
-            repx=spec.repx, repy=spec.repy)
 
     # ------------------------------------------------------------------
     def step_program(self, nsteps: int):
         if nsteps not in self._step_cache:
+            from ..ops.sweep import make_stencil_sweep, run_steps
             grid = self.grid
-            L = self.layers
             exch = exchange_multi_fn(grid.halo_spec, depth=1)
-            if self.use_pallas or self._sweep_K > 1:
-                exchK = exchange_multi_fn(grid.halo_spec,
-                                          depth=max(self._sweep_K, 1))
-            if self.use_pallas:
-                sweepK = self._make_sweep(self._sweep_K)
+            K = self._sweep_K
+            sweepK = make_stencil_sweep(
+                lambda s, masks, _: self._step_math(*s, *masks),
+                spec=grid.halo_spec, steps_per_sweep=K, reach=1)
 
-            def body(eta, u, v, t_upd, u_wet, v_wet, codes):
-                state = (eta, u, v)
-                base = 0
-                K = self._sweep_K
-                if (self.use_pallas or K > 1) and nsteps >= K:
-                    if self.use_pallas:
-                        # flatten the level axis ONCE around the loop,
-                        # not per sweep: the exchange is layout-
-                        # agnostic, so the 3L 2D planes ride it directly
-                        flat0 = tuple([state[0][k] for k in range(L)]
-                                      + [state[1][k] for k in range(L)]
-                                      + [state[2][k] for k in range(L)])
-
-                        def sweep(_, s):
-                            return tuple(sweepK(*exchK(s), codes))
-
-                        flat = lax.fori_loop(0, nsteps // K, sweep,
-                                             flat0)
-                        state = (jnp.stack(flat[:L]),
-                                 jnp.stack(flat[L:2 * L]),
-                                 jnp.stack(flat[2 * L:]))
-                    else:
-                        def sweep(_, s):   # jnp comm avoidance
-                            s = exchK(s)
-                            for _k in range(K):
-                                s = self._step_math(*s, t_upd, u_wet,
-                                                    v_wet)
-                            return tuple(s)
-
-                        state = lax.fori_loop(0, nsteps // K, sweep,
-                                              state)
-                    base = (nsteps // K) * K
-                if nsteps - base:
-                    def one(i, s):
-                        s = exch(s)
-                        return self._step_math(*s, t_upd, u_wet, v_wet)
-                    state = lax.fori_loop(0, nsteps - base, one, state)
-                return state
+            def body(eta, u, v, t_upd, u_wet, v_wet):
+                masks = (t_upd, u_wet, v_wet)
+                return run_steps(nsteps, K, (eta, u, v),
+                                 lambda _, s: sweepK(s, masks),
+                                 lambda _, s: self._block_step(exch, *s,
+                                                               *masks))
 
             blk3 = P(None, "y", "x")
             blk2 = P("y", "x")
             smapped = jax.shard_map(
                 body, mesh=grid.mesh,
-                in_specs=(blk3,) * 3 + (blk2,) * 3 + (blk2,),
+                in_specs=(blk3,) * 3 + (blk2,) * 3,
                 out_specs=(blk3,) * 3, check_vma=False)
             self._step_cache[nsteps] = jax.jit(smapped)
         return self._step_cache[nsteps]
@@ -259,8 +157,7 @@ class NLayerModel:
     def run(self, nsteps: int) -> None:
         prog = self.step_program(nsteps)
         out = prog(self.eta.data, self.u.data, self.v.data,
-                   self._t_upd, self._u_wet, self._v_wet,
-                   self._mask_codes)
+                   self._t_upd, self._u_wet, self._v_wet)
         self.eta.data, self.u.data, self.v.data = out
 
     # ------------------------------------------------------------------
@@ -276,24 +173,17 @@ class NLayerModel:
 
 def build(gnx: int = 64, gny: int = 64, ndomains=None, dt: float = 0.02,
           layers: int = 3, tmask=None, halo_width: int = 1,
-          pallas: bool = False, steps_per_sweep: int = 1,
-          **kw) -> NLayerModel:
-    from ..ops.fastpath import fast_path_grid_args
-    halo_width, align, align_y = fast_path_grid_args(
-        pallas, steps_per_sweep, 1, halo_width)
+          steps_per_sweep: int = 1, **kw) -> NLayerModel:
+    from ..ops.sweep import sweep_halo
+    halo_width = sweep_halo(steps_per_sweep, 1, halo_width)
     grid = dl.Grid(dl.ARAKAWA_C,
                    (dl.BC_EXTERNAL, dl.BC_EXTERNAL, dl.BC_NONE),
                    dl.OFFSET_NE)
-    grid.decompose(gnx, gny, ndomains=ndomains, halo_width=halo_width,
-                   align=align, align_y=align_y)
+    grid.decompose(gnx, gny, ndomains=ndomains, halo_width=halo_width)
     dl.grid_init(grid, 1.0, 1.0, default_tmask(gnx, gny)
                  if tmask is None else tmask)
     model = NLayerModel(grid, dt=dt, layers=layers, **kw)
-    if pallas:
-        model.enable_pallas(steps_per_sweep=steps_per_sweep)
-    elif steps_per_sweep > 1:
-        # jnp comm avoidance (a silent no-op here would reintroduce the
-        # bug nemolite2d.build once had)
+    if steps_per_sweep > 1:
         model.set_steps_per_exchange(steps_per_sweep)
     return model
 

@@ -249,9 +249,8 @@ class SemiImplicitModel:
             # eta_ext at t^{n+1}; rc recomputed from the hv operand ==
             # the diag_extra baked into the operator at build
             rt1 = (istep + 1).astype(eta.dtype) * dt
-            # cos_wp: XLA:TPU's scalar cos is only f32-accurate in
-            # looped contexts (CLAUDE.md; the flagship's tidal forcing
-            # uses the same working-precision trig)
+            # cos_wp: the working-precision cosine (ops/trig.py; the
+            # flagship's tidal forcing uses the same trig)
             from ..ops.trig import cos_wp
             eta_ext1 = self.bc_amp * cos_wp(self.bc_omega * rt1)
             rc = obc * (th * dt / dy) * jnp.sqrt(g * hv)

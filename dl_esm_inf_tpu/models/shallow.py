@@ -22,8 +22,6 @@ from __future__ import annotations
 import numpy as np
 
 import jax
-import jax.numpy as jnp
-from jax import lax
 from jax.sharding import PartitionSpec as P
 
 import dl_esm_inf_tpu as dl
@@ -48,9 +46,6 @@ class ShallowModel:
         self.u = dl.Field(grid, dl.U_POINTS)
         self.v = dl.Field(grid, dl.V_POINTS)
         self._step_cache = {}
-        self.use_pallas = False
-        self._pallas_interpret = False
-        self._pallas_tile_rows = None
         self._sweep_K = 1
 
     def set_initial_eta(self, eta_global: np.ndarray) -> None:
@@ -61,7 +56,7 @@ class ShallowModel:
         self.eta.halo_exchange(1)
 
     def _step_math(self, eta, u, v):
-        """One step on a block/window (total reach 1; no masks — the
+        """One step on a block (total reach 1; no masks — the
         domain is all-wet periodic, so even halo cells evolve exactly
         like their interior twins: the deep-halo sweep needs no mask)."""
         g, H, dt, f = self.g, self.depth, self.dt, self.f0
@@ -82,81 +77,39 @@ class ShallowModel:
         return self._step_math(eta, u, v)
 
     # ------------------------------------------------------------------
-    def enable_pallas(self, interpret: bool = False,
-                      tile_rows: int | None = None,
-                      steps_per_sweep: int = 1) -> None:
-        """Fused stencil-sweep fast path (ops/sweep.py engine); the
-        periodic wrap rides the (depth-K) exchange between sweeps."""
-        from ..ops.fastpath import enable_fast_path
-        enable_fast_path(self, reach=1, interpret=interpret,
-                         tile_rows=tile_rows,
-                         steps_per_sweep=steps_per_sweep)
-
     def set_steps_per_exchange(self, steps_per_sweep: int) -> None:
-        """Comm avoidance on the jnp path: K chained steps per depth-K
-        exchange (no Pallas; ops/fastpath.py)."""
-        from ..ops.fastpath import set_steps_per_exchange
+        """Comm avoidance: K chained steps per depth-K exchange
+        (ops/sweep.py)."""
+        from ..ops.sweep import set_steps_per_exchange
         set_steps_per_exchange(self, reach=1,
                                steps_per_sweep=steps_per_sweep)
 
-    def _make_sweep(self, K: int):
-        from ..ops.sweep import make_stencil_sweep
-        spec = self.grid.halo_spec
-        dtype = jnp.dtype(self.eta.dtype)
-
-        def stepf(state, prepared, scalars):
-            return self._step_math(*state)
-
-        return make_stencil_sweep(
-            stepf, ly=spec.local_ny, lx=spec.local_nx,
-            state_dtypes=(dtype,) * 3, aux_dtypes=(), n_scalars=0,
-            steps_per_sweep=K, reach=1,
-            tile_rows=self._pallas_tile_rows,
-            interpret=self._pallas_interpret,
-            repx=spec.repx, repy=spec.repy)
-
     def step_program(self, nsteps: int,
                      remat_chunk: int | None = None):
-        if remat_chunk is not None and (self.use_pallas
-                                        or self._sweep_K > 1):
+        if remat_chunk is not None and self._sweep_K > 1:
             raise ValueError(
-                "remat_chunk needs the plain differentiable jnp path: "
-                "build the model without pallas/steps_per_sweep")
+                "remat_chunk needs the one-step differentiable path: "
+                "build the model without steps_per_sweep")
         key = (nsteps, remat_chunk)
         if key not in self._step_cache:
+            from ..ops.sweep import make_stencil_sweep, run_steps
             grid = self.grid
             exch = exchange_multi_fn(grid.halo_spec, depth=1)
             K = self._sweep_K
-            if K > 1 or self.use_pallas:
-                exchK = exchange_multi_fn(grid.halo_spec, depth=max(K, 1))
-            if self.use_pallas:
-                sweepK = self._make_sweep(K)
+            sweepK = make_stencil_sweep(
+                lambda s, _p, _s: self._step_math(*s),
+                spec=grid.halo_spec, steps_per_sweep=K, reach=1)
 
             def body(eta, u, v):
-                state = (eta, u, v)
-                base = 0
+                def one(_, s):
+                    return self._block_step(exch, *s)
+
                 if remat_chunk is not None:
                     from ..ops.adjoint import checkpointed_fori
-                    return checkpointed_fori(
-                        nsteps, lambda i, s: self._block_step(exch, *s),
-                        state, remat_chunk)
-                if (K > 1 or self.use_pallas) and nsteps >= K:
-                    if self.use_pallas:
-                        def sweep(_, s):
-                            return sweepK(*exchK(s))
-                    else:
-                        def sweep(_, s):   # jnp comm avoidance
-                            s = exchK(s)
-                            for _k in range(K):
-                                s = self._step_math(*s)
-                            return tuple(s)
-                    state = lax.fori_loop(0, nsteps // K, sweep, state)
-                    base = (nsteps // K) * K
-                if nsteps - base:
-                    state = lax.fori_loop(
-                        0, nsteps - base,
-                        lambda i, s: self._block_step(exch, *s), state)
-                return state
+                    return checkpointed_fori(nsteps, one, (eta, u, v),
+                                             remat_chunk)
+                return run_steps(nsteps, K, (eta, u, v),
+                                 lambda _, s: sweepK(s), one)
 
             self._step_cache[key] = jax.jit(jax.shard_map(
                 body, mesh=grid.mesh, in_specs=(P("y", "x"),) * 3,
@@ -179,21 +132,17 @@ class ShallowModel:
 
 
 def build(gnx: int = 64, gny: int = 64, ndomains=None, dt: float = 0.01,
-          halo_width: int = 1, pallas: bool = False,
+          halo_width: int = 1,
           steps_per_sweep: int = 1, **kw) -> ShallowModel:
-    from ..ops.fastpath import fast_path_grid_args
-    halo_width, align, align_y = fast_path_grid_args(
-        pallas, steps_per_sweep, 1, halo_width)
+    from ..ops.sweep import sweep_halo
+    halo_width = sweep_halo(steps_per_sweep, 1, halo_width)
     grid = dl.Grid(dl.ARAKAWA_C,
                    (dl.BC_PERIODIC, dl.BC_PERIODIC, dl.BC_NONE),
                    dl.OFFSET_SW)
-    grid.decompose(gnx, gny, ndomains=ndomains, halo_width=halo_width,
-                   align=align, align_y=align_y)
+    grid.decompose(gnx, gny, ndomains=ndomains, halo_width=halo_width)
     dl.grid_init(grid, 1.0, 1.0)          # all-wet periodic domain
     model = ShallowModel(grid, dt=dt, **kw)
-    if pallas:
-        model.enable_pallas(steps_per_sweep=steps_per_sweep)
-    elif steps_per_sweep > 1:
+    if steps_per_sweep > 1:
         model.set_steps_per_exchange(steps_per_sweep)
     return model
 

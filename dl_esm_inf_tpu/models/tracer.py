@@ -90,8 +90,8 @@ def face_values_y(c, t_upd, v, scheme: str):
 def tracer_step(c, u, v, t_upd, u_wet, v_wet, *, dx, dy, dt, kappa,
                 scheme):
     """One conservative flux-form step (reach 1 upwind / 2 vanleer):
-    the tracer physics shared by the standalone model (jnp + Pallas
-    windows) and the online-coupled step."""
+    the tracer physics shared by the standalone model and the
+    online-coupled step."""
     fx = u * face_values_x(c, t_upd, u, scheme)
     fy = v * face_values_y(c, t_upd, v, scheme)
     tend = -(st.ddx_back(fx, dx) + st.ddy_back(fy, dy))
@@ -127,9 +127,6 @@ class TracerModel:
         dtype = self.c.dtype
         self._t_upd, self._u_wet, self._v_wet = wet_update_masks(
             grid, dtype)
-        self._mask_codes = jax.device_put(
-            st.pack_mask_bits((self._t_upd, self._u_wet, self._v_wet)),
-            grid.sharding)
 
         # steady velocities: mask at the faces, exchange to FULL halo
         # depth once (the deep-halo sweep needs them valid like masks)
@@ -148,9 +145,6 @@ class TracerModel:
         self._v = vf.data * self._v_wet
 
         self._step_cache = {}
-        self.use_pallas = False
-        self._pallas_interpret = False
-        self._pallas_tile_rows = None
         self._sweep_K = 1
 
     # ------------------------------------------------------------------
@@ -163,7 +157,7 @@ class TracerModel:
 
     # ------------------------------------------------------------------
     def _step_math(self, c, u, v, t_upd, u_wet, v_wet):
-        """One conservative step on a block/window (reach = 1 or 2)."""
+        """One conservative step on a block (reach = 1 or 2)."""
         return (tracer_step(c, u, v, t_upd, u_wet, v_wet,
                             dx=self.grid.dx, dy=self.grid.dy,
                             dt=self.dt, kappa=self.kappa,
@@ -174,40 +168,10 @@ class TracerModel:
         return self._step_math(c, u, v, t_upd, u_wet, v_wet)
 
     # ------------------------------------------------------------------
-    def enable_pallas(self, interpret: bool = False,
-                      tile_rows: int | None = None,
-                      steps_per_sweep: int = 1) -> None:
-        """Fused stencil-sweep fast path (ops/sweep.py engine)."""
-        from ..ops.fastpath import enable_fast_path
-        enable_fast_path(self, reach=self.reach, interpret=interpret,
-                         tile_rows=tile_rows,
-                         steps_per_sweep=steps_per_sweep)
-
     def set_steps_per_exchange(self, steps_per_sweep: int) -> None:
-        from ..ops.fastpath import set_steps_per_exchange
+        from ..ops.sweep import set_steps_per_exchange
         set_steps_per_exchange(self, reach=self.reach,
                                steps_per_sweep=steps_per_sweep)
-
-    def _make_sweep(self, K: int):
-        from ..ops.sweep import make_stencil_sweep
-        spec = self.grid.halo_spec
-        dtype = jnp.dtype(self.c.dtype)
-
-        def prepare(aux):
-            u, v, codes = aux
-            return (u, v) + st.unpack_mask_bits(codes, 3, dtype)
-
-        def stepf(state, prepared, scalars):
-            return self._step_math(*state, *prepared)
-
-        return make_stencil_sweep(
-            stepf, ly=spec.local_ny, lx=spec.local_nx,
-            state_dtypes=(dtype,),
-            aux_dtypes=(dtype, dtype, jnp.int8), n_scalars=0,
-            steps_per_sweep=K, reach=self.reach, prepare_fn=prepare,
-            tile_rows=self._pallas_tile_rows,
-            interpret=self._pallas_interpret,
-            repx=spec.repx, repy=spec.repy)
 
     # ------------------------------------------------------------------
     def step_program(self, nsteps: int = 1,
@@ -215,64 +179,42 @@ class TracerModel:
         """Compiled program advancing C by ``nsteps``; ``remat_chunk``
         checkpoints the loop for bounded-memory reverse AD
         (``ops/adjoint.py`` — source-inversion 4D-Var windows)."""
-        if remat_chunk is not None and (self.use_pallas
-                                        or self._sweep_K > 1):
+        if remat_chunk is not None and self._sweep_K > 1:
             raise ValueError(
-                "remat_chunk needs the plain differentiable jnp path: "
-                "build the tracer model without pallas/steps_per_sweep")
+                "remat_chunk needs the one-step differentiable path: "
+                "build the tracer model without steps_per_sweep")
         key = (nsteps, remat_chunk)
         if key not in self._step_cache:
+            from ..ops.sweep import make_stencil_sweep, run_steps
             grid = self.grid
             exch = exchange_multi_fn(grid.halo_spec, depth=self.reach)
             K = self._sweep_K
-            if K > 1 or self.use_pallas:
-                exchK = exchange_multi_fn(grid.halo_spec,
-                                          depth=max(K * self.reach,
-                                                    self.reach))
-            if self.use_pallas:
-                sweepK = self._make_sweep(K)
+            sweepK = make_stencil_sweep(
+                lambda s, ops, _: self._step_math(*s, *ops),
+                spec=grid.halo_spec, steps_per_sweep=K, reach=self.reach)
 
-            def body(c, u, v, t_upd, u_wet, v_wet, codes):
-                state = (c,)
-                base = 0
+            def body(c, u, v, t_upd, u_wet, v_wet):
+                ops = (u, v, t_upd, u_wet, v_wet)
+
+                def one(_, s):
+                    return self._block_step(exch, *s, *ops)
+
                 if remat_chunk is not None:
                     from ..ops.adjoint import checkpointed_fori
-
-                    def one(_, s):
-                        return self._block_step(exch, *s, u, v, t_upd,
-                                                u_wet, v_wet)
-                    return checkpointed_fori(nsteps, one, state,
+                    return checkpointed_fori(nsteps, one, (c,),
                                              remat_chunk)
-                if (K > 1 or self.use_pallas) and nsteps >= K:
-                    if self.use_pallas:
-                        def sweep(_, s):
-                            return sweepK(*exchK(s), u, v, codes)
-                    else:
-                        def sweep(_, s):   # jnp comm avoidance
-                            s = exchK(s)
-                            for _k in range(K):
-                                s = self._step_math(*s, u, v, t_upd,
-                                                    u_wet, v_wet)
-                            return tuple(s)
-                    state = lax.fori_loop(0, nsteps // K, sweep, state)
-                    base = (nsteps // K) * K
-                if nsteps - base:
-                    state = lax.fori_loop(
-                        0, nsteps - base,
-                        lambda i, s: self._block_step(
-                            exch, *s, u, v, t_upd, u_wet, v_wet), state)
-                return state
+                return run_steps(nsteps, K, (c,),
+                                 lambda _, s: sweepK(s, ops), one)
 
             self._step_cache[key] = jax.jit(jax.shard_map(
-                body, mesh=grid.mesh, in_specs=(P("y", "x"),) * 7,
+                body, mesh=grid.mesh, in_specs=(P("y", "x"),) * 6,
                 out_specs=(P("y", "x"),), check_vma=False))
         return self._step_cache[key]
 
     def run(self, nsteps: int) -> None:
         prog = self.step_program(nsteps)
         (self.c.data,) = prog(self.c.data, self._u, self._v,
-                              self._t_upd, self._u_wet, self._v_wet,
-                              self._mask_codes)
+                              self._t_upd, self._u_wet, self._v_wet)
 
     # ------------------------------------------------------------------
     def mass(self) -> float:
@@ -314,10 +256,10 @@ class CoupledTracer:
         if not isinstance(flagship, NemoLite2D):
             raise TypeError("CoupledTracer rides a NemoLite2D model, "
                             f"got {type(flagship).__name__}")
-        if flagship.use_pallas or flagship._sweep_K > 1:
+        if flagship._sweep_K > 1:
             raise ValueError(
-                "CoupledTracer wraps the jnp path: build the flagship "
-                "without pallas/steps_per_sweep")
+                "CoupledTracer wraps the one-step path: build the "
+                "flagship without steps_per_sweep")
         if scheme not in ("upwind", "vanleer"):
             raise ValueError(f"scheme must be 'upwind' or 'vanleer', "
                              f"got {scheme!r}")
@@ -435,23 +377,20 @@ def streamfunction_velocities(psi: np.ndarray, dx: float = 1.0,
 def build(gnx: int = 64, gny: int = 64, ndomains=None, dt: float = 0.1,
           u=0.2, v=0.1, kappa: float = 0.0, scheme: str = "vanleer",
           tmask: np.ndarray | None = None, halo_width: int | None = None,
-          dx: float = 1.0, dy: float = 1.0,
-          pallas: bool = False, steps_per_sweep: int = 1,
+          dx: float = 1.0, dy: float = 1.0, steps_per_sweep: int = 1,
           **kw) -> TracerModel:
     """Tracer model on a walled domain (one-cell land ring by default).
 
     ``u``/``v`` are scalars or global face arrays; ``halo_width``
     defaults to the scheme's stencil reach (2 for vanleer)."""
-    from ..ops.fastpath import fast_path_grid_args
+    from ..ops.sweep import sweep_halo
     reach = 1 if scheme == "upwind" else 2
-    halo_width, align, align_y = fast_path_grid_args(
-        pallas, steps_per_sweep, reach,
-        reach if halo_width is None else halo_width)
+    halo_width = sweep_halo(steps_per_sweep, reach,
+                            reach if halo_width is None else halo_width)
     grid = dl.Grid(dl.ARAKAWA_C,
                    (dl.BC_EXTERNAL, dl.BC_EXTERNAL, dl.BC_NONE),
                    dl.OFFSET_NE)
-    grid.decompose(gnx, gny, ndomains=ndomains, halo_width=halo_width,
-                   align=align, align_y=align_y)
+    grid.decompose(gnx, gny, ndomains=ndomains, halo_width=halo_width)
     if tmask is None:
         tmask = np.ones((gny, gnx), dtype=np.int32)
         tmask[0, :] = tmask[-1, :] = 0
@@ -459,9 +398,7 @@ def build(gnx: int = 64, gny: int = 64, ndomains=None, dt: float = 0.1,
     dl.grid_init(grid, dx, dy, tmask=tmask)
     model = TracerModel(grid, dt=dt, u=u, v=v, kappa=kappa,
                         scheme=scheme, **kw)
-    if pallas:
-        model.enable_pallas(steps_per_sweep=steps_per_sweep)
-    elif steps_per_sweep > 1:
+    if steps_per_sweep > 1:
         model.set_steps_per_exchange(steps_per_sweep)
     return model
 

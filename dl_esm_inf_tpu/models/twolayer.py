@@ -4,10 +4,10 @@ A fourth client family, beyond anything the reference ecosystem ships:
 two stacked fluid layers on the Arakawa-C grid (NE offset) carrying a
 fast barotropic (surface) mode and a slow baroclinic (internal) mode.
 Its purpose in the framework is structural: the state is SIX fields
-(eta1, eta2, u1, v1, u2, v2), which exercises the generic sweep
-engine's n-field path (ops/sweep.py state_dtypes) — the engines and
-halo machinery must be field-count-agnostic, like the reference's
-per-field exchange machinery.
+(eta1, eta2, u1, v1, u2, v2), which exercises the n-field path of the
+K-step sweep (ops/sweep.py) — the sweep and halo machinery must be
+field-count-agnostic, like the reference's per-field exchange
+machinery.
 
 Linearised layered equations (flat bottom, f=0, forward-backward):
 
@@ -26,7 +26,6 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-from jax import lax
 from jax.sharding import PartitionSpec as P
 
 import dl_esm_inf_tpu as dl
@@ -63,13 +62,7 @@ class TwoLayerModel:
         self._t_upd = (wet_t & geo).astype(dtype)
         self._u_wet = (wet_t & (st.xp(tm) == 1)).astype(dtype)
         self._v_wet = (wet_t & (st.yp(tm) == 1)).astype(dtype)
-        self._mask_codes = jax.device_put(
-            st.pack_mask_bits((self._t_upd, self._u_wet, self._v_wet)),
-            grid.sharding)
         self._step_cache = {}
-        self.use_pallas = False
-        self._pallas_interpret = False
-        self._pallas_tile_rows = None
         self._sweep_K = 1
 
     # ------------------------------------------------------------------
@@ -106,91 +99,46 @@ class TwoLayerModel:
         return self._step_math(*state, *masks)
 
     # ------------------------------------------------------------------
-    def enable_pallas(self, interpret: bool = False,
-                      tile_rows: int | None = None,
-                      steps_per_sweep: int = 1) -> None:
-        """Fused six-field stencil sweep (ops/sweep.py; reach 1, K<=8)."""
-        from ..ops.fastpath import enable_fast_path
-        enable_fast_path(self, reach=1, interpret=interpret,
-                         tile_rows=tile_rows,
-                         steps_per_sweep=steps_per_sweep)
-
     def set_steps_per_exchange(self, steps_per_sweep: int) -> None:
-        """Comm avoidance on the jnp path: K chained steps per depth-K
-        exchange (no Pallas; ops/fastpath.py)."""
-        from ..ops.fastpath import set_steps_per_exchange
+        """Comm avoidance: K chained steps per depth-K exchange
+        (ops/sweep.py)."""
+        from ..ops.sweep import set_steps_per_exchange
         set_steps_per_exchange(self, reach=1,
                                steps_per_sweep=steps_per_sweep)
 
-    def _make_sweep(self, K: int):
-        from ..ops.sweep import make_stencil_sweep
-        spec = self.grid.halo_spec
-        dtype = jnp.dtype(self.eta1.dtype)
-
-        def prepare(aux):
-            return st.unpack_mask_bits(aux[0], 3, dtype)
-
-        def stepf(state, prepared, scalars):
-            return self._step_math(*state, *prepared)
-
-        return make_stencil_sweep(
-            stepf, ly=spec.local_ny, lx=spec.local_nx,
-            state_dtypes=(dtype,) * 6, aux_dtypes=(jnp.int8,),
-            n_scalars=0, steps_per_sweep=K, reach=1, prepare_fn=prepare,
-            tile_rows=self._pallas_tile_rows,
-            interpret=self._pallas_interpret,
-            repx=spec.repx, repy=spec.repy)
-
     def step_program(self, nsteps: int,
                      remat_chunk: int | None = None):
-        if remat_chunk is not None and (self.use_pallas
-                                        or self._sweep_K > 1):
+        if remat_chunk is not None and self._sweep_K > 1:
             raise ValueError(
-                "remat_chunk needs the plain differentiable jnp path: "
-                "build the model without pallas/steps_per_sweep")
+                "remat_chunk needs the one-step differentiable path: "
+                "build the model without steps_per_sweep")
         key = (nsteps, remat_chunk)
         if key not in self._step_cache:
+            from ..ops.sweep import make_stencil_sweep, run_steps
             grid = self.grid
             exch = exchange_multi_fn(grid.halo_spec, depth=1)
             K = self._sweep_K
-            if K > 1 or self.use_pallas:
-                exchK = exchange_multi_fn(grid.halo_spec, depth=max(K, 1))
-            if self.use_pallas:
-                sweepK = self._make_sweep(K)
+            sweepK = make_stencil_sweep(
+                lambda s, masks, _: self._step_math(*s, *masks),
+                spec=grid.halo_spec, steps_per_sweep=K, reach=1)
 
-            def body(e1, e2, u1, v1, u2, v2, t_upd, u_wet, v_wet, codes):
+            def body(e1, e2, u1, v1, u2, v2, t_upd, u_wet, v_wet):
                 state = (e1, e2, u1, v1, u2, v2)
-                base = 0
+                masks = (t_upd, u_wet, v_wet)
+
+                def one(_, s):
+                    return self._block_step(exch, *s, *masks)
+
                 if remat_chunk is not None:
                     from ..ops.adjoint import checkpointed_fori
-                    return checkpointed_fori(
-                        nsteps,
-                        lambda i, s: self._block_step(
-                            exch, *s, t_upd, u_wet, v_wet),
-                        state, remat_chunk)
-                if (K > 1 or self.use_pallas) and nsteps >= K:
-                    if self.use_pallas:
-                        def sweep(_, s):
-                            return sweepK(*exchK(s), codes)
-                    else:
-                        def sweep(_, s):   # jnp comm avoidance
-                            s = exchK(s)
-                            for _k in range(K):
-                                s = self._step_math(*s, t_upd, u_wet,
-                                                    v_wet)
-                            return tuple(s)
-                    state = lax.fori_loop(0, nsteps // K, sweep, state)
-                    base = (nsteps // K) * K
-                if nsteps - base:
-                    state = lax.fori_loop(
-                        0, nsteps - base,
-                        lambda i, s: self._block_step(
-                            exch, *s, t_upd, u_wet, v_wet), state)
-                return state
+                    return checkpointed_fori(nsteps, one, state,
+                                             remat_chunk)
+                return run_steps(nsteps, K, state,
+                                 lambda _, s: sweepK(s, masks), one)
 
             smapped = jax.shard_map(
                 body, mesh=grid.mesh,
-                in_specs=(P("y", "x"),) * 10,
+                in_specs=(P("y", "x"),) * 9,
                 out_specs=(P("y", "x"),) * 6, check_vma=False)
             self._step_cache[key] = jax.jit(smapped)
         return self._step_cache[key]
@@ -199,8 +147,7 @@ class TwoLayerModel:
         prog = self.step_program(nsteps)
         out = prog(self.eta1.data, self.eta2.data, self.u1.data,
                    self.v1.data, self.u2.data, self.v2.data,
-                   self._t_upd, self._u_wet, self._v_wet,
-                   self._mask_codes)
+                   self._t_upd, self._u_wet, self._v_wet)
         (self.eta1.data, self.eta2.data, self.u1.data, self.v1.data,
          self.u2.data, self.v2.data) = out
 
@@ -218,22 +165,18 @@ class TwoLayerModel:
 
 
 def build(gnx: int = 128, gny: int = 128, ndomains=None, dt: float = 0.02,
-          tmask=None, halo_width: int = 1, pallas: bool = False,
+          tmask=None, halo_width: int = 1,
           steps_per_sweep: int = 1, **kw) -> TwoLayerModel:
-    from ..ops.fastpath import fast_path_grid_args
-    halo_width, align, align_y = fast_path_grid_args(
-        pallas, steps_per_sweep, 1, halo_width)
+    from ..ops.sweep import sweep_halo
+    halo_width = sweep_halo(steps_per_sweep, 1, halo_width)
     grid = dl.Grid(dl.ARAKAWA_C,
                    (dl.BC_EXTERNAL, dl.BC_EXTERNAL, dl.BC_NONE),
                    dl.OFFSET_NE)
-    grid.decompose(gnx, gny, ndomains=ndomains, halo_width=halo_width,
-                   align=align, align_y=align_y)
+    grid.decompose(gnx, gny, ndomains=ndomains, halo_width=halo_width)
     dl.grid_init(grid, 1.0, 1.0, default_tmask(gnx, gny)
                  if tmask is None else tmask)
     model = TwoLayerModel(grid, dt=dt, **kw)
-    if pallas:
-        model.enable_pallas(steps_per_sweep=steps_per_sweep)
-    elif steps_per_sweep > 1:
+    if steps_per_sweep > 1:
         model.set_steps_per_exchange(steps_per_sweep)
     return model
 

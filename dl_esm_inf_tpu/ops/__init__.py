@@ -1,21 +1,4 @@
-"""Per-chip compute: stencil primitives and the fused sweep engine."""
-import importlib
-
+"""Per-shard compute: stencil primitives and the K-step sweep schedule."""
 from . import stencils  # noqa: F401
-
-
-def __getattr__(name):
-    # Lazy: keep jax.experimental.pallas off the pure-jnp import path.
-    # NOTE: must use importlib, not `from . import sweep` — the import
-    # machinery's fromlist handling probes this very __getattr__ for
-    # the submodule attribute before it is bound, which recurses.
-    if name == "sweep":
-        return importlib.import_module(".sweep", __name__)
-    if name == "make_stencil_sweep":
-        return importlib.import_module(".sweep", __name__).make_stencil_sweep
-    if name in ("enable_fast_path", "fast_path_grid_args",
-                "set_steps_per_exchange"):
-        # pallas-free helpers live in fastpath, not the sweep module
-        return getattr(importlib.import_module(".fastpath", __name__),
-                       name)
-    raise AttributeError(name)
+from . import sweep  # noqa: F401
+from .sweep import make_stencil_sweep, set_steps_per_exchange  # noqa: F401

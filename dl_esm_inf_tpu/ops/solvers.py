@@ -6,7 +6,7 @@ need one elliptic solve per time step, and on MPI that means a hand
 written CG with halo exchanges inside the matvec and ``MPI_Allreduce``
 dot products (the reference's ``global_sum``,
 parallel_utils_mod.f90:230-238, is exactly the primitive such clients
-call).  This module supplies that capability class TPU-natively:
+call).  This module supplies that capability class in JAX:
 
 * the matvec is "depth-1 halo exchange + local 5-point stencil" on the
   shard's block (``parallel.halo.exchange_fn`` inlined in shard_map);
@@ -291,25 +291,6 @@ def chebyshev_block(b, x0, *, matvec, lam_min: float, lam_max: float,
     return x
 
 
-def chebyshev_scalars(lam_min: float, lam_max: float,
-                      niters: int) -> np.ndarray:
-    """Host-computed ``(niters, 2)`` per-iteration recurrence
-    coefficients ``(c1_k, c2_k)`` with ``d <- c1*d + c2*r`` — the
-    Chebyshev rho sequence is data-independent, which is what lets the
-    whole iteration run as a fused Pallas sweep with per-sub-step SMEM
-    scalars (no scalar readbacks, no dots)."""
-    theta = 0.5 * (lam_max + lam_min)
-    delta = max(0.5 * (lam_max - lam_min), 1e-30 * theta)
-    sigma1 = theta / delta
-    rho = 1.0 / sigma1
-    out = np.zeros((niters, 2))
-    for k in range(niters):
-        rho_new = 1.0 / (2.0 * sigma1 - rho)
-        out[k] = (rho_new * rho, 2.0 * rho_new / delta)
-        rho = rho_new
-    return out
-
-
 def make_helmholtz_matvec(spec, e, w, n, s, diag, exchange: bool = True):
     """Per-block ``x -> (I + lam*L) x`` closure over coefficient blocks
     (themselves shard_map operands): one depth-1 exchange + 5-point
@@ -339,9 +320,7 @@ class HelmholtzSolver:
     def __init__(self, grid, lam_x: float, lam_y: float, *,
                  tol: float | None = None, maxiter: int | None = None,
                  precondition: bool = True, method: str = "cg",
-                 steps_per_exchange: int = 1, pallas: bool = False,
-                 pallas_interpret: bool = False,
-                 tile_rows: int | None = None):
+                 steps_per_exchange: int = 1):
         """``method="chebyshev"`` selects the communication-avoiding
         iteration: no inner products (zero scalar collectives; uses
         the analytic eigenvalue bounds ``[1, 1+4(lam_x+lam_y)]``) and
@@ -351,16 +330,7 @@ class HelmholtzSolver:
         analogue of the models' ``set_steps_per_exchange`` — needing
         ``halo_width >= K`` and relying on halo cells computing
         exactly like their interior twins (the coefficient arrays are
-        halo-exchanged at build time to guarantee it).
-
-        ``pallas=True`` (chebyshev only) runs the iteration on the
-        fused sweep engine: K iterations per HBM pass, the face
-        activities packed into ONE int8 bit-plane decoded per tile,
-        and the rho recurrence streamed as per-sub-step SMEM scalars
-        (it is data-independent — the reason Chebyshev fuses and CG
-        cannot).  Needs a TPU-tile-aligned grid
-        (``decompose(halo_width=K, align=128, align_y=8)``) and a
-        4-byte dtype; ``pallas_interpret=True`` for CPU testing."""
+        halo-exchanged at build time to guarantee it)."""
         if grid.halo_spec is None:
             raise ValueError("grid must be initialised (grid_init) "
                              "before building a solver")
@@ -386,56 +356,25 @@ class HelmholtzSolver:
                     f"steps_per_exchange={self.steps_per_exchange} "
                     f"needs halo_width >= {self.steps_per_exchange}, "
                     f"grid has {d.halo} (decompose(halo_width=...))")
-        self.pallas = bool(pallas)
-        self._pallas_interpret = bool(pallas_interpret)
-        self._tile_rows = tile_rows
-        if self.pallas:
-            if method != "chebyshev":
-                raise ValueError(
-                    "pallas=True needs method='chebyshev': CG's dot "
-                    "products force a kernel boundary every iteration, "
-                    "Chebyshev's recurrence scalars are data-"
-                    "independent and stream through SMEM")
-            if d.halo < self.steps_per_exchange:
-                raise ValueError(
-                    f"pallas chebyshev with steps_per_exchange="
-                    f"{self.steps_per_exchange} needs halo_width >= "
-                    f"{self.steps_per_exchange}, grid has {d.halo}")
         self._user_maxiter = maxiter is not None
         self.maxiter = int(maxiter if maxiter is not None
                            else 4 * (d.global_nx + d.global_ny))
-        scalar_lam = all(np.isscalar(v) or getattr(v, "ndim", 0) == 0
-                         for v in (lam_x, lam_y))
-        if self.pallas and not scalar_lam:
-            raise NotImplementedError(
-                "pallas chebyshev streams the couplings as int8 "
-                "activity bits scaled by SCALAR lam; per-face arrays "
-                "run the jnp path")
-        self._lam = ((float(lam_x), float(lam_y)) if scalar_lam
-                     else None)
         lam_max = (float(np.max(lam_x)) + float(np.max(lam_y)))
         self._lam_bounds = (1.0, 1.0 + 4.0 * lam_max)
         coeffs = helmholtz_coefficients(grid, lam_x, lam_y)
         put = functools.partial(jax.device_put, device=grid.sharding)
         arrs = [put(jnp.asarray(c)) for c in coeffs]
-        if self.steps_per_exchange > 1 or self.pallas:
+        if self.steps_per_exchange > 1:
             # halo cells must carry their interior twin's coefficients
             # so redundant halo compute reproduces the twin exactly
             from ..parallel import halo as halo_mod
             arrs = [halo_mod.exchange(a, grid.mesh, grid.halo_spec,
                                       depth=d.halo) for a in arrs]
         self._coeffs = tuple(arrs)
-        if self.pallas:
-            # face-activity bits from the (already halo-exchanged)
-            # float coefficients: one byte per point of sweep traffic
-            # (jnp ops — the arrays are sharded, possibly multi-host)
-            self._codes = put(st.pack_mask_bits(
-                [arrs[j] != 0 for j in range(4)]))
         self._inv_diag = put(jnp.asarray(1.0 / coeffs[4])) \
             if precondition else None
         self._weight = put(jnp.asarray(
             layout.internal_mask(d).astype(np.dtype(grid.dtype))))
-        self._extra_ops = ()
         self._prog = None
 
     def _program(self):
@@ -467,9 +406,6 @@ class HelmholtzSolver:
                     niters = min(niters,
                                  max(K, (self.maxiter // K) * K))
                 H = self.grid.decomp.halo
-                theta = 0.5 * (lmax + lmin)
-                sweepK = self._make_cheb_sweep(K) if self.pallas \
-                    else None
 
                 def _residual(b, x, wgt, mv1):
                     r = b - mv1(x)       # mv1 refreshes x's halo itself
@@ -482,108 +418,38 @@ class HelmholtzSolver:
                         bb, jnp.asarray(np.finfo(np.dtype(acc)).tiny,
                                         acc)))
 
-                if self.pallas:
-                    scal = jnp.asarray(chebyshev_scalars(
-                        lmin, lmax, niters).reshape(niters // K, K, 2),
-                        jnp.dtype(self.grid.dtype))
-                    exchK = exchange_multi_fn(spec, depth=max(K, 1))
+                def body(b, x0, wgt, e, w, n, s, diag, *pc):
+                    if K == 1:
+                        mv = make_helmholtz_matvec(spec, e, w, n, s,
+                                                   diag)
+                        x = chebyshev_block(b, x0, matvec=mv,
+                                            lam_min=lmin,
+                                            lam_max=lmax,
+                                            niters=niters)
+                    else:
+                        mv = make_helmholtz_matvec(
+                            spec, e, w, n, s, diag, exchange=False)
+                        exchH = exchange_multi_fn(spec, depth=H)
+                        x = chebyshev_block(
+                            b, x0, matvec=mv, lam_min=lmin,
+                            lam_max=lmax, niters=niters,
+                            exchange_every=(K, exchH))
+                    # one verified residual at the end (the
+                    # iteration itself is dot-free)
+                    mv1 = make_helmholtz_matvec(spec, e, w, n, s,
+                                                diag)
+                    rel = _residual(b, x, wgt, mv1)
+                    return (exch(x),
+                            jnp.asarray(niters, jnp.int32),
+                            rel.astype(acc))
 
-                    def body(b, x0, wgt, e, w, n, s, diag, codes, sc,
-                             *pc):
-                        mv1 = make_helmholtz_matvec(spec, e, w, n, s,
-                                                    diag)
-                        r0 = b - mv1(x0)
-                        d0 = r0 / theta
-
-                        def blk(j, c):
-                            x, r, d = exchK(c)
-                            x, r, d = sweepK(x, r, d, codes, sc[j])
-                            return (x, r, d)
-
-                        x, _r, _d = lax.fori_loop(
-                            0, niters // K, blk, (x0, r0, d0))
-                        rel = _residual(b, x, wgt, mv1)
-                        return (exch(x),
-                                jnp.asarray(niters, jnp.int32),
-                                rel.astype(acc))
-
-                    self._extra_ops = (self._codes, scal)
-                else:
-                    def body(b, x0, wgt, e, w, n, s, diag, *pc):
-                        if K == 1:
-                            mv = make_helmholtz_matvec(spec, e, w, n, s,
-                                                       diag)
-                            x = chebyshev_block(b, x0, matvec=mv,
-                                                lam_min=lmin,
-                                                lam_max=lmax,
-                                                niters=niters)
-                        else:
-                            mv = make_helmholtz_matvec(
-                                spec, e, w, n, s, diag, exchange=False)
-                            exchH = exchange_multi_fn(spec, depth=H)
-                            x = chebyshev_block(
-                                b, x0, matvec=mv, lam_min=lmin,
-                                lam_max=lmax, niters=niters,
-                                exchange_every=(K, exchH))
-                        # one verified residual at the end (the
-                        # iteration itself is dot-free)
-                        mv1 = make_helmholtz_matvec(spec, e, w, n, s,
-                                                    diag)
-                        rel = _residual(b, x, wgt, mv1)
-                        return (exch(x),
-                                jnp.asarray(niters, jnp.int32),
-                                rel.astype(acc))
-
-            n_extra = 2 if (self.method == "chebyshev" and self.pallas) \
-                else 0
-            n_in = 8 + n_extra + (1 if has_pc else 0)
-            in_specs = [P("y", "x")] * 8
-            if n_extra:
-                in_specs += [P("y", "x"), P()]     # codes, scalars
-            if has_pc:
-                in_specs += [P("y", "x")]
-            assert len(in_specs) == n_in
+            in_specs = [P("y", "x")] * (8 + (1 if has_pc else 0))
             smapped = jax.shard_map(
                 body, mesh=self.grid.mesh,
                 in_specs=tuple(in_specs),
                 out_specs=(P("y", "x"), P(), P()), check_vma=False)
             self._prog = jax.jit(smapped)
         return self._prog
-
-    def _make_cheb_sweep(self, K: int):
-        """K Chebyshev iterations as ONE fused sweep pass: state
-        (x, r, d), aux = one int8 face-activity plane (decoded to the
-        five coefficient windows once per tile), per-sub-step SMEM
-        scalars (c1, c2)."""
-        from .sweep import make_stencil_sweep
-        spec = self.grid.halo_spec
-        dt = jnp.dtype(self.grid.dtype)
-        lam_x, lam_y = self._lam
-
-        def prep(aux):
-            be, bw, bn, bs = st.unpack_mask_bits(aux[0], 4, dt)
-            e = lam_x * be
-            w = lam_x * bw
-            n = lam_y * bn
-            s = lam_y * bs
-            return e, w, n, s, 1.0 + e + w + n + s
-
-        def stepf(state, prepared, sc):
-            x, r, d = state
-            e, w, n, s, diag = prepared
-            c1, c2 = sc
-            x = x + d
-            r = r - (diag * d - e * st.xp(d) - w * st.xm(d)
-                     - n * st.yp(d) - s * st.ym(d))
-            d = c1 * d + c2 * r
-            return x, r, d
-
-        return make_stencil_sweep(
-            stepf, ly=spec.local_ny, lx=spec.local_nx,
-            state_dtypes=(dt,) * 3, aux_dtypes=(jnp.int8,),
-            n_scalars=2, steps_per_sweep=K, reach=1, prepare_fn=prep,
-            tile_rows=self._tile_rows, interpret=self._pallas_interpret,
-            repx=spec.repx, repy=spec.repy)
 
     def _residual64_program(self):
         """Jitted ``(b64, x64) -> b64 - A x64`` in float64 (exchange +
@@ -607,10 +473,9 @@ class HelmholtzSolver:
         """float64-accurate solve at working-precision speed: iterative
         refinement.  Each round solves the correction system in the
         grid's (float32) working precision and evaluates the residual
-        in float64 — on this platform f64 add/mul are faithful but cost
-        ~9x f32 (doc/performance.md "fp64 on the chip"), so refinement
-        pays the f64 tax on ONE matvec per round instead of the whole
-        iteration.  Returns ``(x64, info)`` with
+        in float64, so refinement pays the f64 cost on ONE matvec per
+        round instead of the whole iteration.  (What f64 costs against
+        f32 on the GPU is not measured.)  Returns ``(x64, info)`` with
         ``info["refined_rel_res"]`` the final f64 residual norm.
         """
         import jax as _jax
@@ -627,8 +492,8 @@ class HelmholtzSolver:
         bdat = b.data if isinstance(b, Field) else jnp.asarray(b)
         b64 = bdat.astype(jnp.float64)
         # initial solve at WORKING precision even for an f64 rhs — an
-        # f64 bdat would otherwise run the whole iteration at the ~9x
-        # tax (and compile a second program variant)
+        # f64 bdat would otherwise run the whole iteration in f64
+        # (and compile a second program variant)
         bwp = bdat.astype(self.grid.dtype)
         res64 = self._residual64_program()
         acc = jnp.dtype(kinds.sum_dtype())
@@ -661,9 +526,8 @@ class HelmholtzSolver:
         bdat = b.data if isinstance(b, Field) else jnp.asarray(b)
         x0dat = ((x0.data if isinstance(x0, Field) else jnp.asarray(x0))
                  if x0 is not None else jnp.zeros_like(bdat))
-        prog = self._program()           # builds _extra_ops if pallas
-        args = [bdat, x0dat, self._weight, *self._coeffs,
-                *self._extra_ops]
+        prog = self._program()
+        args = [bdat, x0dat, self._weight, *self._coeffs]
         if self._inv_diag is not None:
             args.append(self._inv_diag)
         x, k, rel = prog(*args)

@@ -1,7 +1,7 @@
 """Stencil primitives for local shard blocks.
 
 The reference library provides no kernels — clients write Fortran loops
-over ``internal`` bounds (doc/api.rst:240-337).  The TPU-native analogue:
+over ``internal`` bounds (doc/api.rst:240-337).  Here
 kernels are pure jnp functions over a shard's *local block* (halo ring
 included), composed inside one ``shard_map`` program per time step, so
 XLA fuses the whole step into a minimal number of HBM passes.
@@ -13,70 +13,36 @@ results (the pad-and-mask contract).  All helpers work on any 2D array.
 """
 from __future__ import annotations
 
-import contextlib
-
 import jax.numpy as jnp
-
-# Roll implementation stack: jnp.roll by default; inside a Pallas TPU
-# kernel the sweep engine pushes the hardware vector rotate
-# (pltpu.roll), which lowers to a single Mosaic rotate instead of
-# jnp.roll's slice+slice+concatenate (the step is VPU-bound, so shift
-# cost is on the critical path — doc/performance.md).  Both are exact
-# permutations with identical semantics, so jnp/Pallas path-equality
-# tests stay bitwise.
-_ROLL = [jnp.roll]
-
-
-def _roll(a, shift_by: int, axis: int):
-    return _ROLL[-1](a, shift_by, axis)
-
-
-@contextlib.contextmanager
-def hw_rolls():
-    """While active, shifts use the TPU vector rotate (pltpu.roll).
-    Only valid while tracing inside a Pallas TPU kernel (compiled or
-    interpret mode)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    def roll(a, shift_by, axis):
-        axis = axis % a.ndim
-        # pltpu.roll requires a non-negative shift; roll is periodic
-        return pltpu.roll(a, shift_by % a.shape[axis], axis)
-
-    _ROLL.append(roll)
-    try:
-        yield
-    finally:
-        _ROLL.pop()
 
 
 def xp(a):
     """a[j, i+1] (east neighbour)."""
-    return _roll(a, -1, -1)
+    return jnp.roll(a, -1, -1)
 
 
 def xm(a):
     """a[j, i-1] (west neighbour)."""
-    return _roll(a, 1, -1)
+    return jnp.roll(a, 1, -1)
 
 
 def yp(a):
     """a[j+1, i] (north neighbour)."""
-    return _roll(a, -1, -2)
+    return jnp.roll(a, -1, -2)
 
 
 def ym(a):
     """a[j-1, i] (south neighbour)."""
-    return _roll(a, 1, -2)
+    return jnp.roll(a, 1, -2)
 
 
 def shift(a, dx: int = 0, dy: int = 0):
     """a[j+dy, i+dx]."""
     out = a
     if dy:
-        out = _roll(out, -dy, -2)
+        out = jnp.roll(out, -dy, -2)
     if dx:
-        out = _roll(out, -dx, -1)
+        out = jnp.roll(out, -dx, -1)
     return out
 
 
@@ -119,7 +85,7 @@ def avg_y_back(a):
 def pack_mask_bits(masks) -> jnp.ndarray:
     """Pack 0/1 masks (constant in time) into one int8 bitfield: one
     byte per point of HBM traffic instead of one float array per mask
-    (roofline economics); decoded roll-free on the VPU."""
+    (roofline economics); decoded with shifts and ands, no rolls."""
     masks = list(masks)
     if len(masks) > 8:
         raise ValueError(

@@ -1,705 +1,100 @@
-"""Generic temporal-blocked stencil-sweep engine (Pallas/Mosaic).
+"""K-step stencil sweeps: the communication-avoiding schedule.
 
-The framework's per-chip execution engine: ANY client model whose step
-is a bounded-reach stencil chain over (ly, lx) blocks gets the fused
-fast path by supplying a block step function — the TPU analogue of the
-reference library's role of running client kernels over its fields
-(dl_esm_inf itself ships no physics; SURVEY §3.6).
+A client model whose step is a bounded-reach stencil chain over shard
+blocks advances K steps after ONE halo exchange at depth ``K * reach``:
+each step erodes ``reach`` valid halo cells, and the shard computes the
+eroded ring redundantly instead of communicating again (the deep-halo
+argument).  The reference hardwires exchange depth 1
+(parallel_comms_mod.f90:48), so it cannot express this schedule.
 
-Mechanics (measured rules in ops/pallas_step.py's history):
-
-* the local shard block is processed in row-strip tiles; each tile's
-  input window carries an 8-row alignment ring (Mosaic rejects
-  non-8-aligned DMA row offsets for f32 sublane tiling);
-* the tile loop is a double-buffered DMA pipeline processed in PAIRS
-  with Python-static buffer slots (dynamic ``buf[slot]`` indexing
-  measured ~17 us/step of VMEM shuffling on v5e);
-* ``steps_per_sweep`` (K) applies the step K times per window while it
-  is VMEM-resident — temporal blocking: one HBM read+write AND one
-  (deep) halo exchange per K steps.  Requires K*reach <= 8 (the ring)
-  and a shard halo of width >= K*reach.
-
-Fused communication (``exchange_spec``): the remote-DMA halo exchange
-runs INSIDE the sweep kernel on the shard's input buffers — the
-reference's unreached TODO #58 (field_mod.f90:1230) done TPU-natively.
-The x phase (edge columns east/west) completes before the first tile's
-window loads; the y phase (full-width edge rows, which propagates
-corners by sequencing) is only *started* — interior tiles stream while
-those rows fly over ICI, and the two boundary tiles (the only ones that
-read y-halo rows) run after the wait.  The ppermute exchange
-(parallel/halo.py) remains the always-correct fallback transport.
-
-Used by ops/pallas_step.py (NEMOLite2D) and models/gravity_wave.py.
+Everything is plain ``jax.numpy`` over the whole shard block, left to
+XLA to fuse.  This module is the one place that knows how K steps
+compose with the exchange; the client models supply their step.
 """
 from __future__ import annotations
 
-import contextlib
-
-import jax
-import jax.numpy as jnp
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from . import stencils
-from .fastpath import RING  # noqa: E402  (single source of the ring size)
+from ..parallel.halo import exchange_multi_fn
 
 
-def _cdiv(a, b):
-    return -(-a // b)
-
-
-def auto_tile_rows(ly: int) -> int:
-    """Default VMEM-tile height for a ``ly``-row block.
-
-    The row loop clamps its last tile (``ry = min(i*TY, ly-TY)``), so a
-    TY that does not divide ``ly`` re-runs up to TY-1 already-computed
-    rows in a full extra tile pass.  Measured on the v5e (1040-row
-    flagship block, scripts/abk4.py, interleaved): even dividers 80 and
-    104 beat the old fixed 64 in 10/10 and ~6/8 adjacent rounds
-    (~8-15%); 104 vs 80 is a coin toss, so prefer the LARGEST even
-    divider in [64, 128] (fewer tiles amortise the 2*RING window ring
-    and the per-tile prep).  No even divider -> the measured-good 64.
-
-    This is the conservative fallback; :func:`choose_tile_rows` (used
-    when the engine knows its stream count) additionally considers
-    much taller tiles under a VMEM budget."""
-    best = None
-    for ty in range(64, 129, 8):
-        if ty > ly:
-            break
-        if ly % ty == 0:
-            best = ty
-    return best if best is not None else min(64, ly)
-
-
-#: Scoped-VMEM model for choose_tile_rows: explicit (2, TY+2*RING, lx)
-#: in/out window buffers PLUS Mosaic's step intermediates, which live
-#: at the same (TY+2*RING, lx) tile shape.  INTERMEDIATE_PLANES is the
-#: f32-plane equivalent of a step's live temporaries, calibrated on
-#: the chip: the flagship at TY=520/lx=1152 (windows 30.9 MB) and the
-#: TVD tracer at TY=520 (35.8 MB) both compile and run under a 100 MB
-#: Mosaic limit, while the 2048-grid flagship at TY=344/lx=2176
-#: (windows 39.2 MB) was refused there at a 115.35 MB scoped
-#: allocation — windows + 25 planes predicts 92.6 / 97.5 / 117.5 MB
-#: respectively.  Round 5 re-ran that TY=344 config with the Mosaic
-#: limit raised to 126 MB: it compiles AND runs (6 interleaved rounds,
-#: best 192.5 vs 197.3 us/step for the 8x264 alternative) — the 100 MB
-#: cap was the parameter, not the 128 MB physical VMEM — so the model
-#: budget is 118 MB with the Mosaic cap at 126 MB (MOSAIC_VMEM_CAP),
-#: keeping 8 MB of headroom between what the model admits and what
-#: the compiler will accept.
-INTERMEDIATE_PLANES = 25
-TILE_VMEM_LIMIT = 118 * 1024 * 1024
-MOSAIC_VMEM_CAP = 126 * 1024 * 1024
-
-
-def choose_tile_rows(ly: int, lx: int, state_dtypes, aux_dtypes,
-                     min_tiles: int = 2,
-                     limit_bytes: int = TILE_VMEM_LIMIT) -> int:
-    """Tile height when the stream count is known: redundant ring
-    compute is pure VPU overhead on a compute-bound step — the window
-    computes TY + 2*RING rows to keep TY, so (TY+16)/TY of the kernel
-    time is the ring tax (15.4% at TY=104, 3.1% at TY=520).
-
-    Measured on the v5e (1040-row flagship, scripts/abk4.py,
-    interleaved, round 4): TY=520 beat TY=104 in 6/6 adjacent rounds
-    (best 38.3 vs 42.3 us/step, ~3-9%), while TY=208 LOST to both by
-    ~10% — its 5-tile sweep is the only odd count, leaving one
-    unoverlapped remainder tile per sweep outside the pair pipeline.
-
-    Round 5 (verdict r4 #4): TY need not DIVIDE ly — the row loop
-    already clamps the last tile (``ry = min(i*TY, ly-TY)``), re-running
-    its overlap rows.  At production sizes no even-count divider fits
-    the VMEM model (2048-grid: ly=2064 = 2^4*3*43 offers nothing
-    8-aligned in budget) and the old chooser fell to 64-row tiles with
-    a ~28%% ring tax; a CLAMPED candidate pays its overlap inside the
-    same objective and wins whenever the taller window's smaller ring
-    share beats the re-run.  So: minimise TOTAL COMPUTED WINDOW ROWS
-    ``cdiv(ly,TY) * (TY + 2*RING)`` over 8-aligned TY >= 64 with an
-    EVEN tile count (pair-pipeline, measured above) whose MODELLED
-    scoped VMEM (window buffers + INTERMEDIATE_PLANES step temporaries,
-    all at (TY+2*RING, lx)) fits ``limit_bytes``; cost ties prefer
-    fewer tiles (less per-tile prep — the scan derives exactly one TY
-    per tile count, so this is the only reachable tiebreak).  No
-    even-count candidate -> any count >= min_tiles ->
-    :func:`auto_tile_rows`."""
-    # intermediates were calibrated on the 3-state-plane flagship;
-    # multi-level fused schedules stream N planes per slot and their
-    # stacked-view temporaries scale with the plane count, so charge
-    # proportionally MORE (never less: the 1-state TVD tracer's
-    # temporaries already need the full 25)
-    inter = INTERMEDIATE_PLANES * max(1, -(-len(state_dtypes) // 3))
-    per_row = lx * (2 * (2 * sum(jnp.dtype(d).itemsize
-                                 for d in state_dtypes)
-                         + sum(jnp.dtype(d).itemsize
-                               for d in aux_dtypes))
-                    + 4 * inter)
-
-    def scan(counts):
-        best = None                       # (computed_rows, n_tiles, ty)
-        for n_tiles in counts:
-            ty = _cdiv(_cdiv(ly, n_tiles), 8) * 8
-            if ty < 64:
-                break                     # ty shrinks as counts grow
-            if _cdiv(ly, ty) != n_tiles:  # rounding changed the count;
-                continue                  # that config appears under
-            if (ty + 2 * RING) * per_row > limit_bytes:  # its own n
-                continue
-            cand = (n_tiles * (ty + 2 * RING), n_tiles, ty)
-            if best is None or cand < best:
-                best = cand
-        return best[2] if best is not None else None
-
-    start = min_tiles + (min_tiles % 2)
-    best = scan(range(start, ly // 64 + 1, 2))
-    if best is None and min_tiles > 2:
-        # no even count fits, but the caller NEEDS >= min_tiles (the
-        # fused transport's y-phase overlap): any count >= min_tiles
-        # beats silently dropping the requirement
-        best = scan(range(min_tiles, ly // 64 + 1))
-    return best if best is not None else auto_tile_rows(ly)
-
-
-def make_stencil_sweep(step_fn, *, ly: int, lx: int, state_dtypes,
-                       aux_dtypes=(), n_scalars: int = 0,
-                       steps_per_sweep: int = 1, reach: int = 2,
-                       total_reach: int | None = None,
-                       prepare_fn=None, tile_rows: int | None = None,
-                       interpret: bool = False, hardware_rolls: bool = True,
-                       exchange_spec=None, exchange_logical_ids: bool = False,
-                       repx: int = 1, repy: int = 1,
-                       vmem_limit_bytes: int = MOSAIC_VMEM_CAP):
-    """Build ``sweep(*state, *aux, scalars) -> state'`` for one shard block.
-
-    ``step_fn(state: tuple, prepared, scalars: tuple) -> tuple`` advances
-    the state by ONE step on a VMEM window; it is applied K times per
-    window.  ``prepare_fn(aux_windows: tuple) -> prepared`` runs once per
-    tile (hoisting per-tile constants, e.g. mask decode); default
-    passes the aux windows through.  ``scalars`` is a (K, n_scalars)
-    array of per-sub-step scalar parameters (SMEM).
-
-    All state/aux arrays are (ly, lx); state dtypes stream in AND out,
-    aux dtypes stream in only.  Total stencil reach per step must be
-    <= ``reach``; ``total_reach`` overrides the default ``K * reach``
-    whole-sweep validity erosion for step chains whose per-application
-    erosion is non-uniform (a fused kernel SCHEDULE erodes more on its
-    first application than on subsequent ones — see
-    api/kernel_meta.py's dataflow analysis).
-
-    ``exchange_spec`` (a :class:`~..parallel.halo.HaloSpec`): fuse the
-    full-halo-depth remote-DMA exchange of the STATE fields into the
-    kernel (aux fields are time-invariant and keep pre-valid halos).
-    The sweep must then run inside a shard_map over the spec's mesh
-    axes; on a 1x1 non-periodic mesh the exchange compiles away.
-    ``exchange_logical_ids`` addresses peers by scalar logical id —
-    required under single-axis meshes in interpret mode (jax 0.9's
-    remote-DMA emulation limitation; see parallel/halo_pallas.py).
-
-    ``repx``/``repy`` — OVER-DECOMPOSITION: the device block is a
-    (repy, repx) grid of logical (ly, lx) tiles, each with its own
-    halo ring (the layout of parallel/halo.py::_exchange_blocks); the
-    sweep kernel runs once per tile (a static Python loop — the tiles
-    are sequential on the core anyway) and the results reassemble into
-    the device block.  Halo refresh between sweeps stays with the
-    ppermute transport (intra-block seams are its local strip shifts);
-    the fused remote-DMA transport is one-tile-per-device only — a
-    MEASURED don't-care, not a to-do: on the v5e the 2x2
-    over-decomposed flagship at 1024^2 costs ~5.4x the single-tile
-    step (283.6 vs 52.3 us/step, 6 interleaved rounds, r5), so
-    over-decomposition is a decomposition-flexibility feature (the
-    reference caps at one subdomain per rank,
-    parallel_comms_mod.f90:295 — here it runs), never a performance
-    path whose exchange share would be worth fusing.
-    """
-    state_dtypes = tuple(jnp.dtype(d) for d in state_dtypes)
-    aux_dtypes = tuple(jnp.dtype(d) for d in aux_dtypes)
-    if not interpret and any(d.itemsize == 8
-                             for d in state_dtypes + aux_dtypes):
-        raise ValueError(
-            "Mosaic TPU kernels do not support 64-bit dtypes (measured: "
-            "NotImplementedError on v5e); run float64 on the jnp path, "
-            "or the sweep in interpret mode")
-    if not interpret and any(d.itemsize < 4 for d in state_dtypes):
-        raise ValueError(
-            "compiled sweeps support 4-byte state dtypes only: the 8-row "
-            "window ring matches f32 sublane tiling, and bf16 state "
-            "measured a Mosaic compile failure on v5e (sub-4-byte AUX "
-            "planes like the int8 masks are fine); run bf16 on the jnp "
-            "path or in interpret mode")
-    n_state, n_aux = len(state_dtypes), len(aux_dtypes)
-    n_in = n_state + n_aux
+def sweep_halo(steps_per_sweep: int, reach: int, halo_width: int) -> int:
+    """The halo width a model ``build()`` decomposes with: at least
+    ``halo_width`` and deep enough for K steps of ``reach``."""
     K = int(steps_per_sweep)
     if K < 1:
         raise ValueError(f"steps_per_sweep must be >= 1, got {K}")
-    total = int(total_reach) if total_reach is not None else K * reach
-    if total > RING:
+    return max(halo_width, K * reach) if K > 1 else halo_width
+
+
+def set_steps_per_exchange(model, *, reach: int,
+                           steps_per_sweep: int) -> None:
+    """Select K chained steps per depth-K*reach exchange on ``model``
+    (sets ``model._sweep_K`` and clears its program cache).  Needs
+    ``halo_width >= K*reach``."""
+    K = int(steps_per_sweep)
+    if K < 1:
+        raise ValueError(f"steps_per_sweep must be >= 1, got {K}")
+    need = K * reach
+    if model.grid.halo_spec.halo < need:
         raise ValueError(
-            f"whole-sweep erosion {total} (steps_per_sweep={K}, "
-            f"reach={reach}) exceeds the {RING}-row window ring")
-    if ly % 8 != 0:
+            f"steps_per_sweep={K} needs halo_width >= {need}")
+    model._sweep_K = K
+    model._step_cache.clear()
+
+
+def make_stencil_sweep(step_fn, *, spec, steps_per_sweep: int = 1,
+                       reach: int = 1, total_reach: int | None = None,
+                       prepare_fn=None):
+    """Build ``sweep(state, aux=(), scalars=None) -> state`` for one
+    shard block (call it inside ``shard_map``).
+
+    The sweep exchanges the ``state`` tuple's halos once, at depth
+    ``total_reach`` (default ``K * reach``), runs
+    ``prepare_fn(aux)`` once (time-invariant set-up hoisted out of the
+    sub-steps; default passes ``aux`` through), then applies
+    ``step_fn(state, prepared, scalars[k])`` for k = 0..K-1.
+    ``scalars`` is indexed by sub-step (e.g. a (K,) forcing series, or
+    (K, n) rows); ``None`` passes ``None``.  ``total_reach`` overrides
+    the uniform erosion for step chains that erode unevenly (a kernel
+    schedule erodes more on its first application, see
+    ``api/kernel_meta.py``); 0 skips the exchange.
+
+    Halo cells beyond the valid ring hold block-wrapped values after
+    the sweep; they are exactly the cells the next exchange overwrites
+    or the masks keep inert."""
+    K = int(steps_per_sweep)
+    if K < 1:
+        raise ValueError(f"steps_per_sweep must be >= 1, got {K}")
+    total = K * reach if total_reach is None else int(total_reach)
+    if total > spec.halo:
         raise ValueError(
-            f"stencil sweep needs 8-row-aligned blocks (local_ny={ly}); "
-            "decompose with align_y=8")
-    if prepare_fn is None:
-        def prepare_fn(aux):
-            return aux
+            f"a sweep of {K} step(s) erodes {total} halo cells; it needs "
+            f"halo_width >= {total}, the decomposition has {spec.halo}")
+    exch = exchange_multi_fn(spec, depth=total) if total else tuple
 
-    repx, repy = int(repx), int(repy)
-    if (repx < 1 or repy < 1):
-        raise ValueError(f"repx/repy must be >= 1, got {repx}/{repy}")
-    if (repx > 1 or repy > 1) and exchange_spec is not None:
-        raise NotImplementedError(
-            "the fused transport supports one tile per device; "
-            "over-decomposed grids use the ppermute exchange")
-    ex = exchange_spec
-    if ex is not None:
-        if (ex.local_ny, ex.local_nx) != (ly, lx):
-            raise ValueError(
-                f"exchange_spec block {ex.local_ny}x{ex.local_nx} != "
-                f"sweep block {ly}x{lx}")
-        if getattr(ex, "repx", 1) > 1 or getattr(ex, "repy", 1) > 1:
-            raise NotImplementedError(
-                "the fused transport supports one tile per device; "
-                "over-decomposed grids use the ppermute exchange")
-        d = ex.halo        # exchange the FULL halo depth in one go
-        if total > d:
-            raise ValueError(
-                f"fused exchange needs halo >= the whole-sweep erosion "
-                f"{total}, spec has {d}")
-        if d % 8 or ex.tile_ny % 8:
-            raise ValueError(
-                "fused exchange needs 8-row-aligned strips: halo and "
-                f"tile_ny must be multiples of 8 (got halo={d}, "
-                f"tile_ny={ex.tile_ny}); build with halo_width=8, "
-                "align_y=8")
-        if ex.tile_ny < d or ex.tile_nx < d:
-            raise ValueError(
-                f"fused exchange needs tiles >= the halo depth {d} (got "
-                f"{ex.tile_nx}x{ex.tile_ny}): a shallower tile would let "
-                "the in-flight halo receive overlap the concurrently-"
-                "read send rows on hardware")
-        if len(set(state_dtypes)) > 1:
-            raise ValueError(
-                "fused exchange requires uniform state dtypes (the halo "
-                "snapshot buffers are shared); use the ppermute "
-                "transport for mixed-dtype state")
-        do_x = ex.nprocx > 1 or ex.wrap_x
-        do_y = ex.nprocy > 1 or ex.wrap_y
-        need_yr = do_y and not ex.wrap_y     # border restores required
-        w_, hgt_ = ex.tile_nx, ex.tile_ny
-        # x-phase lane-block geometry + merge strategy shared with the
-        # standalone exchange: see parallel/rdma.py (Mosaic cannot DMA
-        # narrow column strips; WB-lane blocks land in peer VMEM and
-        # the halo columns merge in compute, conditionally on a real
-        # neighbour — which also removes the need for x restores).
-        # Here halo == d, so the west blocks start at column 0.
-        from ..parallel import rdma as rdma_common
-        # west_send is the strip [d, 2d) inside block [0, WB): validating
-        # it too makes a too-deep halo (2d > WB) fail at build time
-        # instead of the merge reading past the landing buffer
-        WB, geo = rdma_common.col_block_geometry(
-            lx, {"east_send": (w_, d), "east_halo": (d + w_, d),
-                 "west_send": (d, d)},
-            interpret or not do_x, "fused x-exchange")
-        cs_e, os_e = geo["east_send"]
-        cm_e, om_e = geo["east_halo"]
-        if do_x and 2 * d > WB:
-            raise ValueError(
-                f"fused x-exchange: halo depth {d} needs 2*depth <= the "
-                f"{WB}-lane landing block (local_nx={lx}); use a "
-                "shallower halo or the ppermute transport")
-    else:
-        d = 0
-        do_x = do_y = need_yr = False
-
-    # the fused transport's y-phase overlap needs >= 3 tiles (interior
-    # tiles stream under the in-flight y rows), so keep >= 4 there
-    TY = tile_rows or choose_tile_rows(
-        ly, lx, state_dtypes, aux_dtypes,
-        min_tiles=4 if exchange_spec is not None else 2,
-        limit_bytes=min(vmem_limit_bytes, TILE_VMEM_LIMIT))
-    TY = min(TY, ly)
-    if TY % 8 != 0:
-        raise ValueError(f"tile_rows must be a multiple of 8, got {TY}")
-    H = min(TY + 2 * RING, ly)
-    n_tiles = _cdiv(ly, TY)
-
-    # Overlap schedule: interior tiles may stream under the in-flight
-    # y-phase DMAs iff no interior window touches the y-written rows
-    # [0, d) and [d + tile_ny, 2d + tile_ny)  (halo == d).
-    overlap = False
-    if do_y and n_tiles >= 3:
-        south_ok = TY - RING >= d
-        top_max = min((n_tiles - 2) * TY - RING, ly - H) + H
-        north_ok = top_max <= d + hgt_
-        overlap = south_ok and north_ok
-
-    def _rows(i):
-        ry = pl.multiple_of(jnp.minimum(i * TY, ly - TY), 8)
-        wy = pl.multiple_of(jnp.clip(ry - RING, 0, ly - H), 8)
-        off = pl.multiple_of(ry - wy, 8)
-        return ry, wy, off
-
-    def kernel(scalars_ref, *refs):
-        pos = 0
-        ins_of = refs[pos:pos + n_in]; pos += n_in
-        outs_of = refs[pos:pos + n_state]; pos += n_state
-        if ex is not None:
-            xf = refs[pos:pos + n_state]; pos += n_state
-        wins = refs[pos:pos + n_in]; pos += n_in
-        obufs = refs[pos:pos + n_state]; pos += n_state
-        in_sems = refs[pos]; out_sems = refs[pos + 1]; pos += 2
-        if ex is not None and (do_x or do_y):
-            exch_send = refs[pos]; exch_recv = refs[pos + 1]; pos += 2
-            ready_sems = refs[pos]; bk_sem = refs[pos + 1]; pos += 2
-            if do_x:
-                land_w = refs[pos]; land_e = refs[pos + 1]
-                mbuf = refs[pos + 2]; pos += 3
-            if need_yr:
-                ybk = refs[pos]; pos += 1
-
-        # windows read the exchanged state (the aliased input buffer)
-        # plus the untouched aux inputs
-        srcs = (list(xf) + list(ins_of[n_state:]) if ex is not None
-                else list(ins_of))
-
-        def in_dmas(slot, i):
-            _, wy, _ = _rows(i)
-            return [pltpu.make_async_copy(src.at[pl.ds(wy, H), :],
-                                          w.at[slot], in_sems.at[k, slot])
-                    for k, (src, w) in enumerate(zip(srcs, wins))]
-
-        def out_dmas(slot, i):
-            ry, _, off = _rows(i)
-            return [pltpu.make_async_copy(o.at[slot, pl.ds(off, TY), :],
-                                          dst.at[pl.ds(ry, TY), :],
-                                          out_sems.at[k, slot])
-                    for k, (o, dst) in enumerate(zip(obufs, outs_of))]
-
-        # ------------------------------------------------------------------
-        # Fused halo exchange on the aliased state buffers.
-        # ------------------------------------------------------------------
-        def run_exchange():
-            """x phase to completion; y phase STARTED.  Returns
-            finish_y() to call before any boundary tile loads."""
-            px_, py_ = ex.nprocx, ex.nprocy
-            ix = lax.axis_index("x") if px_ > 1 else jnp.int32(0)
-            iy = lax.axis_index("y") if py_ > 1 else jnp.int32(0)
-            pxc, pyc = jnp.int32(px_), jnp.int32(py_)
-            one = jnp.int32(1)
-            has_e = (ix < px_ - 1) | ex.wrap_x
-            has_w = (ix > 0) | ex.wrap_x
-            has_n = (iy < py_ - 1) | ex.wrap_y
-            has_s = (iy > 0) | ex.wrap_y
-            id_type = (pltpu.DeviceIdType.LOGICAL if exchange_logical_ids
-                       else pltpu.DeviceIdType.MESH)
-
-            from ..parallel import rdma as rdma_common
-
-            def peer_id(p):
-                return (next(iter(p.values())) if exchange_logical_ids
-                        else p)
-
-            # per-(phase, direction) readiness fence — shared with the
-            # standalone exchange (full argument in parallel/rdma.py)
-            fence = rdma_common.make_fence(ready_sems, id_type, peer_id,
-                                           interpret)
-
-            east = {"x": lax.rem(ix + one, pxc)}
-            west = {"x": lax.rem(ix + pxc - one, pxc)}
-            north = {"y": lax.rem(iy + one, pyc)}
-            south = {"y": lax.rem(iy + pyc - one, pyc)}
-            # cross-KERNEL safety: no fence/DMA traffic until every
-            # exchange neighbour has entered this kernel (rdma.py)
-            rdma_common.entry_barrier(
-                id_type, peer_id, interpret,
-                ([east, west] if do_x else []) +
-                ([north, south] if do_y else []))
-
-            def rdma_ref(k, src_ref, dst_ref, dir_idx, peer):
-                return pltpu.make_async_remote_copy(
-                    src_ref=src_ref, dst_ref=dst_ref,
-                    send_sem=exch_send.at[k, dir_idx],
-                    recv_sem=exch_recv.at[k, dir_idx],
-                    device_id=peer_id(peer), device_id_type=id_type)
-
-            def rdma(k, src_sl, dst_ref, dst_sl, dir_idx, peer):
-                return rdma_ref(k, xf[k].at[src_sl], dst_ref.at[dst_sl],
-                                dir_idx, peer)
-
-            colblk = rdma_common.colblk_fn(lx, WB)
-
-            def copy(src, dst):
-                c = pltpu.make_async_copy(src, dst, bk_sem)
-                c.start()
-                c.wait()
-
-            if do_x:
-                fence(0, east, west)
-                # ship full WB-lane column blocks into the peers' VMEM
-                # landing buffers (narrow column strips cannot be DMA'd
-                # — lane-tiling alignment, see the build-time guard)
-                rs = []
-                for k in range(n_state):
-                    # east-send: block holding my east interior strip
-                    # [w_, w_+d) -> east peer's west landing
-                    rs.append(rdma_ref(k, colblk(xf[k], cs_e),
-                                       land_w.at[k], 0, east))
-                    # west-send: block [0, WB) holds my west interior
-                    # strip [d, 2d) -> west peer's east landing
-                    rs.append(rdma_ref(k, colblk(xf[k], 0),
-                                       land_e.at[k], 1, west))
-                for r in rs:
-                    r.start()
-                for r in rs:
-                    r.wait()
-
-                # conditional merge (read-modify-write of one aligned
-                # column block): no real neighbour -> halo untouched,
-                # so no restores are needed at all
-                @pl.when(has_w)
-                def _():
-                    for k in range(n_state):
-                        copy(colblk(xf[k], 0), mbuf)
-                        mbuf[:, 0:d] = land_w[k, :, os_e:os_e + d]
-                        copy(mbuf, colblk(xf[k], 0))
-
-                @pl.when(has_e)
-                def _():
-                    for k in range(n_state):
-                        copy(colblk(xf[k], cm_e), mbuf)
-                        mbuf[:, om_e:om_e + d] = land_e[k, :, d:2 * d]
-                        copy(mbuf, colblk(xf[k], cm_e))
-
-            y_rs = []
-            if do_y:
-                if need_yr:    # snapshot POST-x rows: border restores
-                    for k in range(n_state):   # must keep the x-updated
-                        copy(xf[k].at[pl.ds(0, d), :],       # corners
-                             ybk.at[k, pl.ds(0, d), :])
-                        copy(xf[k].at[pl.ds(d + hgt_, d), :],
-                             ybk.at[k, pl.ds(d, d), :])
-                fence(1, north, south)
-                for k in range(n_state):
-                    # full-width rows AFTER the x phase: corners ride
-                    # the sequencing (parallel/halo.py's two phases)
-                    y_rs.append(rdma(k, (pl.ds(hgt_, d), slice(None)),
-                                     xf[k], (pl.ds(0, d), slice(None)),
-                                     2, north))
-                    y_rs.append(rdma(k, (pl.ds(d, d), slice(None)),
-                                     xf[k],
-                                     (pl.ds(d + hgt_, d), slice(None)),
-                                     3, south))
-                for r in y_rs:
-                    r.start()
-
-            def finish_y():
-                for r in y_rs:
-                    r.wait()
-                if need_yr:
-                    @pl.when(jnp.logical_not(has_s))
-                    def _():
-                        for k in range(n_state):
-                            copy(ybk.at[k, pl.ds(0, d), :],
-                                 xf[k].at[pl.ds(0, d), :])
-
-                    @pl.when(jnp.logical_not(has_n))
-                    def _():
-                        for k in range(n_state):
-                            copy(ybk.at[k, pl.ds(d, d), :],
-                                 xf[k].at[pl.ds(d + hgt_, d), :])
-
-            return finish_y
-
-        # ------------------------------------------------------------------
-        # Tile pipeline.
-        # ------------------------------------------------------------------
-        def tile(slot, i, prefetch=None):
-            """Process tile ``i`` in window ``slot``; ``prefetch`` is
-            (slot', i', cond) to start the next window load, and
-            ``waitout`` the (slot, tile) whose output DMA must land
-            before this slot's output buffer is reused."""
-            prefetch_sl = prefetch
-            if prefetch_sl is not None:
-                nslot, ni, cond = prefetch_sl
-
-                @pl.when(cond)
-                def _():
-                    for c in in_dmas(nslot, ni):
-                        c.start()
-            for c in in_dmas(slot, i):
-                c.wait()
-
-            roll_ctx = (stencils.hw_rolls() if hardware_rolls
-                        else contextlib.nullcontext())
-            with roll_ctx:
-                state = tuple(wins[k][slot] for k in range(n_state))
-                prepared = prepare_fn(tuple(wins[n_state + k][slot]
-                                            for k in range(n_aux)))
-                for k in range(K):
-                    sc = tuple(scalars_ref[k, j] for j in range(n_scalars))
-                    state = step_fn(state, prepared, sc)
-            return state
-
-        def emit(slot, i, state, waitout=None):
-            if waitout is not None:
-                wslot, wi, cond = waitout
-
-                @pl.when(cond)
-                def _():
-                    for c in out_dmas(wslot, wi):
-                        c.wait()
-            for k in range(n_state):
-                obufs[k][slot] = state[k]
-            for c in out_dmas(slot, i):
-                c.start()
-
-        finish_y = run_exchange() if ex is not None and (do_x or do_y) \
-            else (lambda: None)
-
-        if not overlap:
-            finish_y()
-            for c in in_dmas(0, 0):
-                c.start()
-
-            def pair(j, _):
-                for slot in (0, 1):
-                    i = 2 * j + slot
-                    s = tile(slot, i, prefetch=(1 - slot, i + 1,
-                                                i + 1 < n_tiles))
-                    emit(slot, i, s, waitout=(slot, i - 2, i >= 2))
-                return 0
-
-            jax.lax.fori_loop(0, n_tiles // 2, pair, 0)
-            if n_tiles % 2:
-                i, slot = n_tiles - 1, (n_tiles - 1) % 2
-                s = tile(slot, i)
-                emit(slot, i, s, waitout=(slot, i - 2, i >= 2))
-            for i in (n_tiles - 2, n_tiles - 1):
-                if i >= 0:
-                    for c in out_dmas(i % 2, i):
-                        c.wait()
-            return
-
-        # Overlapped schedule: positions 0..m-1 run interior tiles
-        # 1..m (= n_tiles-2) while the y rows fly; positions m, m+1 run
-        # boundary tiles 0 and n_tiles-1 after finish_y().
-        m = n_tiles - 2
-        for c in in_dmas(0, 1):
-            c.start()
-
-        def pairM(j, _):
-            for slot in (0, 1):
-                p = 2 * j + slot               # position p runs tile p+1
-                s = tile(slot, p + 1, prefetch=(1 - slot, p + 2,
-                                                p + 1 < m))
-                emit(slot, p + 1, s, waitout=(slot, p - 1, p >= 2))
-            return 0
-
-        jax.lax.fori_loop(0, m // 2, pairM, 0)
-        if m % 2:
-            p = m - 1
-            s = tile(p % 2, m)
-            emit(p % 2, m, s, waitout=(p % 2, p - 1, p >= 2))
-
-        finish_y()
-        tail = ((m, 0), (m + 1, n_tiles - 1))
-        for tpos, t in tail:
-            for c in in_dmas(tpos % 2, t):
-                c.start()
-        for tpos, t in tail:
-            slot = tpos % 2
-            s = tile(slot, t)
-            # tile_of(tpos-2): position m-2 ran tile m-1; m-1 ran tile m
-            if tpos - 2 >= 0:
-                emit(slot, t, s, waitout=(slot, tpos - 1, True))
-            else:
-                emit(slot, t, s)
-        for tpos, t in tail:
-            for c in out_dmas(tpos % 2, t):
-                c.wait()
-
-    any_spec = pl.BlockSpec(memory_space=pl.ANY)
-    scratch = ([pltpu.VMEM((2, H, lx), dt) for dt in state_dtypes]
-               + [pltpu.VMEM((2, H, lx), dt) for dt in aux_dtypes]
-               + [pltpu.VMEM((2, H, lx), dt) for dt in state_dtypes]
-               + [pltpu.SemaphoreType.DMA((n_in, 2)),
-                  pltpu.SemaphoreType.DMA((n_state, 2))])
-    n_out = n_state
-    aliases = {}
-    if ex is not None:
-        n_out = 2 * n_state
-        # output n_state+k aliases input 1+k (0 is the SMEM scalars):
-        # the exchange updates the state halos in place
-        aliases = {1 + k: n_state + k for k in range(n_state)}
-        if do_x or do_y:
-            scratch += [pltpu.SemaphoreType.DMA((n_state, 4)),
-                        pltpu.SemaphoreType.DMA((n_state, 4)),
-                        pltpu.SemaphoreType.REGULAR((2, 2)),
-                        pltpu.SemaphoreType.DMA(())]
-            if do_x:
-                scratch += [pltpu.VMEM((n_state, ly, WB), state_dtypes[0]),
-                            pltpu.VMEM((n_state, ly, WB), state_dtypes[0]),
-                            pltpu.VMEM((ly, WB), state_dtypes[0])]
-            if need_yr:
-                scratch.append(pltpu.VMEM((n_state, 2 * d, lx),
-                                          state_dtypes[0]))
-    out_shape = tuple(jax.ShapeDtypeStruct((ly, lx), dt)
-                      for dt in (state_dtypes * 2 if ex is not None
-                                 else state_dtypes))
-    call = pl.pallas_call(
-        kernel,
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)]
-                 + [any_spec] * n_in,
-        out_specs=tuple([any_spec] * n_out),
-        out_shape=out_shape,
-        scratch_shapes=scratch,
-        input_output_aliases=aliases,
-        # collective_id names the entry barrier's system semaphore
-        # (parallel/rdma.py) — distinct per remote-DMA kernel.  (Mosaic
-        # does not allow skipping its own launch barrier when a custom
-        # barrier is used — measured on v5e — so both run.)
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=vmem_limit_bytes,
-            **({"has_side_effects": True} if ex is not None else {}),
-            **({"collective_id": rdma_common.COLLECTIVE_ID_SWEEP}
-               if ex is not None and (do_x or do_y) and not interpret
-               else {})),
-        interpret=interpret,
-    )
-
-    def sweep(*arrays_and_scalars):
-        if n_scalars == 0 and len(arrays_and_scalars) == n_in:
-            # pinned 32-bit: under jax_enable_x64 a bare zeros() would be
-            # f64, handing Mosaic an unsupported SMEM operand
-            arrays, scalars = arrays_and_scalars, jnp.zeros((K, 1),
-                                                            jnp.float32)
-        else:
-            *arrays, scalars = arrays_and_scalars
-        if len(arrays) != n_in:
-            raise ValueError(f"expected {n_in} arrays, got {len(arrays)}")
-        sc = jnp.asarray(scalars).reshape((K, max(n_scalars, 1)))
-
-        def one(arrs):
-            out = call(sc, *arrs)
-            return out[:n_state] if ex is not None else out
-
-        if repx == 1 and repy == 1:
-            return one(arrays)
-        # over-decomposition: one kernel invocation per logical tile
-        # (static loop), results reassembled into the device block
-        if arrays[0].shape != (repy * ly, repx * lx):
-            raise ValueError(
-                f"over-decomposed sweep expects device blocks of "
-                f"({repy * ly}, {repx * lx}), got {arrays[0].shape}")
-        tiles = [[one([a[ty * ly:(ty + 1) * ly, tx * lx:(tx + 1) * lx]
-                       for a in arrays])
-                  for tx in range(repx)] for ty in range(repy)]
-        return tuple(
-            jnp.concatenate(
-                [jnp.concatenate([tiles[ty][tx][k] for tx in range(repx)],
-                                 axis=1) for ty in range(repy)], axis=0)
-            for k in range(n_state))
+    def sweep(state, aux=(), scalars=None):
+        state = exch(tuple(state))
+        prepared = prepare_fn(tuple(aux)) if prepare_fn else tuple(aux)
+        for k in range(K):
+            state = tuple(step_fn(state, prepared,
+                                  None if scalars is None else scalars[k]))
+        return state
 
     return sweep
+
+
+def run_steps(nsteps: int, steps_per_sweep: int, state, sweep, step):
+    """Advance ``state`` by ``nsteps`` inside one program:
+    ``nsteps // K`` calls of ``sweep(j, state)`` (K steps each, j the
+    sweep index), then the ``nsteps % K`` remaining steps as
+    ``step(i, state)`` with ``i`` the absolute step index.  With K = 1
+    every step goes through ``step``."""
+    K = int(steps_per_sweep)
+    base = 0
+    if K > 1 and nsteps >= K:
+        state = lax.fori_loop(0, nsteps // K, sweep, state)
+        base = (nsteps // K) * K
+    if nsteps > base:
+        state = lax.fori_loop(base, nsteps, step, state)
+    return state

@@ -1,19 +1,20 @@
-"""Faithful float64 trigonometry for the TPU jnp path.
+"""Faithful float64 trigonometry, independent of the backend's ``sin``.
 
-Measured on v5e (scripts/f64_oracle.py): XLA:TPU executes float64 with
-faithful add/mul/div/sqrt, but its ``sin`` lowering is only
-float32-accurate in scalar/looped contexts (~1.5e-8 absolute at x=1 —
-exactly an f32 ulp).  That one weak primitive was the entire fp64
-parity gap: NEMOLite2D's tidal forcing injects the error at the open
-boundary every step, compounding to ~1e-4 relative by 1024 steps.
+The fp64 parity of NEMOLite2D against its NumPy golden rests on the
+tidal forcing: it injects the sine's error at the open boundary every
+step, so an f32-accurate f64 sine (~1.5e-8 absolute at x=1) compounds
+to ~1e-4 relative by 1024 steps.  A backend whose f64 ``sin`` lowering
+is not faithful would break that parity.
 
-:func:`sin_wp` closes it: for float64 inputs it evaluates sine from the
-primitives that ARE faithful — Cody-Waite two-constant reduction by
-pi/2 and Taylor polynomials on [-pi/4, pi/4] (truncation < 4e-18, below
-f64 roundoff) — and for float32 inputs it stays with ``jnp.sin`` (the
-performance path is untouched).  The reference gets faithful sine from
-libm (model time -> forcing, e.g. its clients' bc_ssh analogues); this
-is the TPU-native way to the same guarantee.
+:func:`sin_wp` rules it out: for float64 inputs it evaluates sine from
+the primitives that are faithful everywhere — Cody-Waite two-constant
+reduction by pi/2 and Taylor polynomials on [-pi/4, pi/4] (truncation
+< 4e-18, below f64 roundoff) — and for float32 inputs it stays with
+``jnp.sin`` (the performance path is untouched).  The reference gets
+faithful sine from libm (model time -> forcing, e.g. its clients'
+bc_ssh analogues).  On the H100, ``jnp.sin`` in float64 is itself
+faithful (``chip_smoke.py`` phase 4 prints both against libm), so
+ROADMAP lists this module for retirement.
 """
 from __future__ import annotations
 
@@ -76,8 +77,8 @@ def cos64(x):
 
 def sin_wp(x):
     """Working-precision sine: faithful-f64 :func:`sin64` when ``x`` is
-    float64 (XLA:TPU's own lowering is f32-accurate there — module
-    docstring), ``jnp.sin`` otherwise (the f32/bf16 fast paths)."""
+    float64 (module docstring), ``jnp.sin`` otherwise (the f32/bf16
+    fast paths)."""
     if jnp.result_type(x) == jnp.float64:
         return sin64(x)
     return jnp.sin(x)

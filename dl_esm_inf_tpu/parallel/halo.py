@@ -1,6 +1,6 @@
 """Distributed halo exchange over a 2D device mesh.
 
-TPU-native replacement for the reference's entire dm_fd_lib stack —
+JAX replacement for the reference's entire dm_fd_lib stack —
 ``map_comms`` + ``exchange_generic`` + the MPI pack/Isend/Irecv/waitany
 machinery (parallel_comms_mod.f90:178-1855, parallel_utils_mod.f90:148-226).
 

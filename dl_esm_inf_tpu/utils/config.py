@@ -4,7 +4,8 @@ The reference's entire config system is environment variables
 (SURVEY §5): ``DL_ESM_ALIGNMENT`` (grid_mod.f90:349-363),
 ``GOCEAN_OMP_GRID`` (field_mod.f90:1473-1503), test-domain sizes
 ``JPIGLO``/``JPJGLO`` (tests/dist_mem/test_halos.f90:56-62).  This module
-reads them all in one place, with the TPU additions ``DL_ESM_DTYPE``
+reads them all in one place, with this framework's additions
+``DL_ESM_DTYPE``
 (see core/kinds.py) documented alongside.
 """
 from __future__ import annotations

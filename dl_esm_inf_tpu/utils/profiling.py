@@ -2,7 +2,7 @@
 
 The reference has no tracing — only compile-time DEBUG/DEBUG_COMMS
 printf gates (parallel_comms_mod.f90:41-43) and decomposition statistics
-(parallel_mod.f90:319-330).  TPU-native upgrades:
+(parallel_mod.f90:319-330).  Upgrades:
 
 * :class:`StepTimer` — wall-clock step timing with a device fence and
   the slope method (two chain lengths) that cancels fixed dispatch/RPC

@@ -86,9 +86,8 @@ def test_beyond_reference_surface():
     from dl_esm_inf_tpu.api.kernel_meta import Schedule, invoke
     from dl_esm_inf_tpu.launch import launch
     from dl_esm_inf_tpu.ops.sweep import make_stencil_sweep
-    from dl_esm_inf_tpu.parallel.halo_pallas import exchange_pallas
     from dl_esm_inf_tpu.utils import checkpoint, diagnostics, profiling
     assert all(callable(x) for x in (
-        Schedule, invoke, launch, make_stencil_sweep, exchange_pallas,
+        Schedule, invoke, launch, make_stencil_sweep,
         checkpoint.save_fields_orbax, diagnostics.kinetic_energy,
         profiling.comms_schedule))

@@ -84,7 +84,7 @@ def test_guards():
         make_cost_fn(m, {0: np.zeros((N, N))})
     mp = gw.build(N, N, dt=0.05, halo_width=2)
     mp.set_steps_per_exchange(2)
-    with pytest.raises(ValueError, match="jnp path"):
+    with pytest.raises(ValueError, match="one-step differentiable path"):
         make_cost_fn(mp, {4: np.zeros((N, N))})
     with pytest.raises(TypeError, match="GravityWaveModel"):
         make_cost_fn(object(), {4: np.zeros((N, N))})

@@ -198,6 +198,6 @@ def test_curvilinear_kernel_in_fused_schedule():
     g1, a1, b1 = build()
     g2, a2, b2 = build()
     Schedule((scale_dx, b1, a1))()
-    Schedule((scale_dx, b2, a2)).fused(interpret=True)
+    Schedule((scale_dx, b2, a2)).fused()
     np.testing.assert_allclose(b2.gather_inner_data(),
                                b1.gather_inner_data(), rtol=1e-12)

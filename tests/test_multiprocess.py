@@ -224,8 +224,8 @@ def test_launch_aborts_gang_on_rank_failure(tmp_path):
 
 
 def test_multiprocess_fused_schedule_matches(mp_results):
-    """The fused (Pallas-sweep) schedule tier across REAL process
-    boundaries == the same program single-process."""
+    """The fused schedule tier (one deep exchange per sweep) across REAL
+    process boundaries == the same program single-process."""
     from dl_esm_inf_tpu.api.kernel_meta import (GO_READ, GO_WRITE,
                                                 GO_CT, Schedule, go_arg,
                                                 go_stencil, kernel)
@@ -244,7 +244,7 @@ def test_multiprocess_fused_schedule_matches(mp_results):
     fa = dl.Field(fgrid, dl.T_POINTS,
                   init_global_data=np.arange(32.0 * 32).reshape(32, 32))
     fb = dl.Field(fgrid, dl.T_POINTS)
-    Schedule((sp_east, fb, fa), (sp_east, fb, fb)).fused(interpret=True)
+    Schedule((sp_east, fb, fa), (sp_east, fb, fb)).fused()
     np.testing.assert_array_equal(mp_results["fused_sched"],
                                   fb.gather_inner_data())
 

@@ -21,15 +21,25 @@ def build(gnx=48, gny=40, ndom=1, open_north=False, **kw):
 
 @pytest.mark.parametrize("ndom", [4, 6])
 @pytest.mark.parametrize("open_north", [False, True])
-def test_decomposition_invariance(ndom, open_north):
-    m1 = build(ndom=1, open_north=open_north)
-    mn = build(ndom=ndom, open_north=open_north)
+def test_decomposition_invariance(ndom, open_north, halo_width=2):
+    """The default deep halo computes the new surface redundantly in
+    the halo ring."""
+    m1 = build(ndom=1, open_north=open_north, halo_width=halo_width)
+    mn = build(ndom=ndom, open_north=open_north, halo_width=halo_width)
     m1.run(50)
     mn.run(50)
     g1, gn = m1.gather(), mn.gather()
     for k in ("sshn", "un", "vn"):
         np.testing.assert_allclose(gn[k], g1[k], rtol=1e-12, atol=1e-13,
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("ndom", [4, 6])
+@pytest.mark.parametrize("open_north", [False, True])
+def test_decomposition_invariance_halo1(ndom, open_north):
+    """Halo width 1 exchanges the new surface between continuity and
+    momentum."""
+    test_decomposition_invariance(ndom, open_north, halo_width=1)
 
 
 def test_closed_basin_mass_conservation():
@@ -69,7 +79,7 @@ def test_chunked_equals_monolithic():
 
 @pytest.mark.parametrize("ndom", [1, 4])
 def test_jnp_comm_avoidance_matches_per_step(ndom):
-    """K chained jnp steps per depth-2K exchange (no Pallas) must equal
+    """K chained jnp steps per depth-2K exchange must equal
     the per-step schedule; 7 steps exercises the sweep remainder."""
     ma = nl.build(48, 40, ndomains=ndom, halo_width=4, open_north=True)
     mb = nl.build(48, 40, ndomains=ndom, halo_width=4, open_north=True)
@@ -85,10 +95,10 @@ def test_jnp_comm_avoidance_matches_per_step(ndom):
 
 
 def test_build_steps_per_sweep_without_pallas():
-    """build(steps_per_sweep=K, pallas=False) must select the jnp
-    comm-avoiding schedule (previously silently ignored)."""
+    """build(steps_per_sweep=K) must select the comm-avoiding schedule
+    and deepen the halo to match."""
     m = nl.build(32, 32, ndomains=1, steps_per_sweep=2)
-    assert m._sweep_K == 2 and not m.use_pallas
+    assert m._sweep_K == 2
     assert m.grid.halo_spec.halo >= 4
 
 
@@ -215,6 +225,6 @@ def test_overlap_variable_bathymetry_matches_plain():
 
 
 def test_overlap_guards():
-    m = build(gnx=16, gny=16, ndom=1)  # halo 1
+    m = build(gnx=16, gny=16, ndom=1, halo_width=1)
     with pytest.raises(ValueError, match="halo_width"):
         m.step_program(1, overlap=True)

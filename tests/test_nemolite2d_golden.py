@@ -1,7 +1,7 @@
 """Flagship model vs the independent NumPy golden (nemolite2d_golden).
 
-Closes the shared-step_math blind spot: both production paths (jnp and
-fused Pallas) are pinned against a from-the-definition NumPy
+Closes the shared-step_math blind spot: both production paths (one step
+per exchange, and the K-step sweep) are pinned against a from-the-definition NumPy
 re-derivation with different shift mechanics, different flux siting and
 different rounding order — a formulation error in step_math cannot pass
 here by being shared.  BASELINE.json's north star is fp64 allclose at
@@ -13,16 +13,13 @@ import pytest
 from dl_esm_inf_tpu.models import nemolite2d as nl
 from dl_esm_inf_tpu.models.gravity_wave import gaussian_eta
 
-from nemolite2d_golden import golden_run
+from dl_esm_inf_tpu.models.nemolite2d_golden import compare, golden_run
 
 
 def _run_model(gnx, gny, nsteps, ssh0, *, depth=100.0, open_north=True,
-               ndom=1, pallas=False, steps_per_sweep=1):
+               ndom=1, steps_per_sweep=1):
     m = nl.build(gnx, gny, ndomains=ndom, open_north=open_north,
-                 depth=depth, pallas=pallas,
-                 steps_per_sweep=steps_per_sweep)
-    if pallas:
-        m.enable_pallas(interpret=True, steps_per_sweep=steps_per_sweep)
+                 depth=depth, steps_per_sweep=steps_per_sweep)
     m.set_initial_ssh(ssh0)
     m.run(nsteps)
     return m
@@ -89,15 +86,49 @@ def test_golden_variable_bathymetry():
 
 
 def test_golden_1024_steps_pallas_interpret():
-    """The fused Pallas path (interpret mode, exact reciprocal) against
-    the golden at the BASELINE horizon, with K=4 temporal blocking so
-    the sweep engine's deep-halo schedule is also under the oracle."""
+    """The K=4 sweep (one depth-8 exchange per 4 steps) on 4 shards
+    against the golden at the BASELINE horizon, so the deep-halo
+    schedule is also under the oracle."""
     gnx, gny = 64, 32
     ssh0 = gaussian_eta(gnx, gny, amp=0.2)
-    m = _run_model(gnx, gny, 1024, ssh0, pallas=True, steps_per_sweep=4)
+    m = _run_model(gnx, gny, 1024, ssh0, ndom=4, steps_per_sweep=4)
     want = _golden(m, gnx, gny, 1024, ssh0)
     got = m.gather()
     for k in ("sshn", "un", "vn"):
         assert np.all(np.isfinite(got[k])), k
         np.testing.assert_allclose(got[k], want[k], rtol=1e-8, atol=1e-10,
                                    err_msg=k)
+
+
+def test_compare_helper_accepts_the_model():
+    """The comparison chip_smoke.py prints: the model after 10 steps
+    is within the stated bound of the golden, field by field."""
+    gnx, gny = 34, 30
+    ssh0 = gaussian_eta(gnx, gny, amp=0.2)
+    m = _run_model(gnx, gny, 10, ssh0, ndom=4)
+    rep = compare(m.gather(), _golden(m, gnx, gny, 10, ssh0),
+                  rtol=1e-11, atol=1e-13)
+    assert sorted(rep) == ["sshn", "un", "vn"]
+    for k, r in rep.items():
+        assert r["ok"] and r["finite"], (k, r)
+        assert 0.0 <= r["max_abs"] <= 1e-11, (k, r)
+
+
+@pytest.mark.parametrize("fault", ["offset", "nan", "shape"])
+def test_compare_helper_rejects_faults(fault):
+    """A perturbed, non-finite or mis-shaped state is not ``ok``."""
+    want = {"sshn": np.linspace(-1.0, 1.0, 12).reshape(3, 4)}
+    got = {"sshn": want["sshn"].copy()}
+    if fault == "offset":
+        got["sshn"][1, 2] += 1e-3
+    elif fault == "nan":
+        got["sshn"][0, 0] = np.nan
+    else:
+        got["sshn"] = got["sshn"][:, :3]
+        with pytest.raises(ValueError, match="shape"):
+            compare(got, want, rtol=1e-6, atol=1e-9)
+        return
+    r = compare(got, want, rtol=1e-6, atol=1e-9)["sshn"]
+    assert not r["ok"]
+    assert r["finite"] == (fault != "nan")
+    assert compare(want, want, rtol=0.0, atol=0.0)["sshn"]["ok"]

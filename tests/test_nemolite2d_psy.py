@@ -50,15 +50,15 @@ def test_psy_jnp_schedule_matches_production(prod):
 
 
 def test_psy_fused_schedule_matches_production(prod):
-    """Tier 3: the whole step as ONE Pallas sweep kernel (single
-    up-front exchange at the sequence's total erosion depth 5)."""
-    check(run_psy(fused=True, interpret=True), prod)
+    """Tier 3: the whole step as ONE sweep (single up-front exchange
+    at the sequence's total erosion depth 3)."""
+    check(run_psy(fused=True), prod)
 
 
 def test_psy_fused_repeats_deep_blocking(prod):
-    """repeats>1 — in-kernel temporal blocking unlocked by the r5
-    dataflow erosion (the naive per-call sum said 5 per repeat and
-    barred repeats>1 inside the 8-row ring): fused_program(nsteps,
+    """repeats>1 — several applications per exchange, unlocked by the
+    r5 dataflow erosion (the naive per-call sum said 5 per repeat and
+    barred repeats>1 at halo 8): fused_program(nsteps,
     repeats=3) at halo 8 == production, and the erosion/repeats API
     pins the flagship's dataflow values."""
     m = NemoLite2DPsy(GNX, GNY, ndomains=4, halo_width=8)
@@ -67,7 +67,7 @@ def test_psy_fused_repeats_deep_blocking(prod):
     assert s.max_fused_repeats() == 3
     m.set_initial_ssh(gaussian_eta(GNX, GNY, amp=0.2))
     r = 3
-    run = s.fused_program(NSTEPS // r, repeats=r, interpret=True)
+    run = s.fused_program(NSTEPS // r, repeats=r)
     run(scalars=[[m._scalars_at(i * r + j) for j in range(r)]
                  for i in range(NSTEPS // r)])
     check(m.gather(), prod)

@@ -338,5 +338,5 @@ def test_rejects_bad_windows():
         OneWayNest(parent, origin=(8, 8), shape=(16, 16), ratio=0)
     ca = gw.build(64, 64, ndomains=1, dt=0.02, depth=10.0,
                   steps_per_sweep=2)
-    with pytest.raises(ValueError, match="plain jnp path"):
+    with pytest.raises(ValueError, match="one-step path"):
         OneWayNest(ca, origin=(16, 16), shape=(16, 16), ratio=2)

@@ -144,16 +144,15 @@ def test_checkpoint_roundtrip_overdecomposed(tmp_path):
 
 
 def test_flagship_pallas_overdecomposed():
-    """The sweep ENGINE on an over-decomposed grid (one kernel pass per
-    logical tile, ppermute exchange between sweeps): 32 tiles on 8
-    devices equal the 1-shard jnp run to fp64 roundoff, with K=2
-    temporal blocking so the deep-halo schedule also crosses the
-    intra-device tile seams."""
+    """The K-step sweep on an over-decomposed grid (ppermute exchange
+    between sweeps, intra-device seams as local strip shifts): 32
+    tiles on 8 devices equal the 1-shard run to fp64 roundoff, with
+    K=2 so the deep-halo schedule also crosses the intra-device tile
+    seams."""
     gnx, gny = 64, 48
     m1 = nl.build(gnx, gny, ndomains=1, open_north=True)
-    mo = nl.build(gnx, gny, ndomains=32, open_north=True, pallas=True,
+    mo = nl.build(gnx, gny, ndomains=32, open_north=True,
                   steps_per_sweep=2)
-    mo.enable_pallas(interpret=True, steps_per_sweep=2)
     spec = mo.grid.halo_spec
     assert spec.repx * spec.repy > 1     # genuinely over-decomposed
     ssh0 = gaussian_eta(gnx, gny, amp=0.5)
@@ -169,8 +168,8 @@ def test_flagship_pallas_overdecomposed():
 
 def test_tracer_overdecomposed():
     """The sixth model family over-decomposed: 24 logical tiles on 8
-    devices, van-Leer (reach 2) with K=2 temporal blocking on the
-    interpret-mode sweep engine — equal to the 1-shard jnp run, and
+    devices, van-Leer (reach 2) with K=2 steps per exchange — equal
+    to the 1-shard run, and
     tracer mass stays exact across the intra-device tile seams."""
     from dl_esm_inf_tpu.models import tracer as tr
     gnx, gny = 48, 48
@@ -184,8 +183,7 @@ def test_tracer_overdecomposed():
     m1.run(12)
 
     mo = tr.build(gnx, gny, ndomains=24, dt=0.2, u=u, v=v, kappa=0.02,
-                  pallas=True, steps_per_sweep=2)
-    mo.enable_pallas(interpret=True, steps_per_sweep=2)
+                  steps_per_sweep=2)
     spec = mo.grid.halo_spec
     assert spec.repx * spec.repy > 1
     mo.set_initial_tracer(c0)
@@ -194,18 +192,3 @@ def test_tracer_overdecomposed():
     assert abs(mo.mass() - mass0) <= 1e-12 * abs(mass0)
     np.testing.assert_allclose(mo.gather()["c"], m1.gather()["c"],
                                rtol=1e-12, atol=1e-13)
-
-
-def test_pallas_paths_guard():
-    """The REMOTE-DMA transports stay one-tile-per-device and refuse
-    over-decomposed grids honestly (the engine itself now supports
-    them via the per-tile sweep + ppermute exchange)."""
-    m = nl.build(64, 64, ndomains=32, halo_width=8)
-    m.enable_pallas(interpret=True)          # engine: supported
-    assert m.use_pallas
-    with pytest.raises(NotImplementedError, match="tile per device"):
-        m.enable_pallas(interpret=True, transport="fused")
-    from dl_esm_inf_tpu.parallel.halo_pallas import exchange_pallas
-    with pytest.raises(NotImplementedError, match="tile per device"):
-        exchange_pallas(m.sshn_t.data, m.grid.mesh, m.grid.halo_spec,
-                        interpret=True)

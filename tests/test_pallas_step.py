@@ -1,6 +1,7 @@
-"""Fused Pallas step vs the jnp step: the two paths share step_math, so
-interior results must agree to roundoff (interpret mode on the CPU
-mesh; the compiled kernel is exercised by bench.py on real TPU).
+"""The K-step sweep schedule (ops/sweep.py) vs the one-step path: K
+steps after one depth-K*reach exchange share the step's physics, so
+interior results must agree to roundoff on every client, at every
+state dtype the grid supports.
 """
 import numpy as np
 import pytest
@@ -9,21 +10,20 @@ from dl_esm_inf_tpu.models import nemolite2d as nl
 from dl_esm_inf_tpu.models.gravity_wave import gaussian_eta
 
 
-def _build(pallas: bool, tile_rows=None, gnx=96, gny=64):
-    m = nl.build(gnx, gny, ndomains=1, halo_width=2, open_north=True,
-                 pallas=pallas)
-    if pallas:
-        m.enable_pallas(interpret=True, tile_rows=tile_rows)
+def _build(steps_per_sweep=1, gnx=96, gny=64, ndomains=1, dtype=None):
+    m = nl.build(gnx, gny, ndomains=ndomains, halo_width=2,
+                 open_north=True, steps_per_sweep=steps_per_sweep,
+                 dtype=dtype)
     m.set_initial_ssh(gaussian_eta(gnx, gny, amp=0.5))
     return m
 
 
-@pytest.mark.parametrize("tile_rows", [None, 24])
-def test_fused_step_matches_jnp(tile_rows):
-    ma = _build(pallas=False)
-    mb = _build(pallas=True, tile_rows=tile_rows)
-    ma.run(5)
-    mb.run(5)
+@pytest.mark.parametrize("K", [2, 3])
+def test_fused_step_matches_jnp(K):
+    ma = _build()
+    mb = _build(steps_per_sweep=K)
+    ma.run(6)
+    mb.run(6)
     ga, gb = ma.gather(), mb.gather()
     for k in ("sshn", "un", "vn"):
         np.testing.assert_allclose(gb[k], ga[k], rtol=1e-12, atol=1e-13,
@@ -32,9 +32,10 @@ def test_fused_step_matches_jnp(tile_rows):
 
 
 def test_fused_step_single_tile():
-    """ly <= TY: the pipeline degenerates to one (odd) tail tile."""
-    ma = _build(pallas=False, gnx=64, gny=32)
-    mb = _build(pallas=True, gnx=64, gny=32)
+    """A shard no wider than its halo ring plus a few cells: the whole
+    block is eroded ring but the interior still matches."""
+    ma = _build(gnx=12, gny=10, ndomains=4)
+    mb = _build(steps_per_sweep=2, gnx=12, gny=10, ndomains=4)
     ma.run(3)
     mb.run(3)
     for k in ("sshn", "un", "vn"):
@@ -44,17 +45,11 @@ def test_fused_step_single_tile():
 
 @pytest.mark.parametrize("ndom", [1, 4])
 def test_temporal_blocking_matches_plain(ndom):
-    """K=2 temporal blocking (one depth-4 exchange per 2 steps) must
-    reproduce the per-step schedule exactly; 7 steps exercises the
-    sweep remainder."""
-    gnx, gny = 96, 64
-    ma = nl.build(gnx, gny, ndomains=ndom, open_north=True, pallas=True)
-    ma.enable_pallas(interpret=True)
-    mb = nl.build(gnx, gny, ndomains=ndom, open_north=True, pallas=True,
-                  steps_per_sweep=2)
-    mb.enable_pallas(interpret=True, steps_per_sweep=2)
-    for m in (ma, mb):
-        m.set_initial_ssh(gaussian_eta(gnx, gny, amp=0.5))
+    """K=2 (one depth-4 exchange per 2 steps) must reproduce the
+    per-step schedule exactly; 7 steps exercises the sweep
+    remainder."""
+    ma = _build(ndomains=ndom)
+    mb = _build(steps_per_sweep=2, ndomains=ndom)
     ma.run(7)
     mb.run(7)
     for k in ("sshn", "un", "vn"):
@@ -63,21 +58,19 @@ def test_temporal_blocking_matches_plain(ndom):
 
 
 def test_temporal_blocking_guards():
+    m = nl.build(32, 32, ndomains=1, halo_width=2)
     with pytest.raises(ValueError, match="halo_width >= 4"):
-        m = nl.build(32, 32, ndomains=1, pallas=True)  # halo 2
-        m.enable_pallas(steps_per_sweep=2)
+        m.set_steps_per_exchange(2)
 
 
 @pytest.mark.parametrize("sweep,nsteps", [(1, 5), (3, 7)])
 def test_gravity_wave_sweep_matches_jnp(sweep, nsteps):
-    """Second client on the generic sweep engine (reach-1 physics,
-    K up to 8); K=3 with 7 steps exercises sweeps + remainder."""
+    """Second client on the sweep engine (reach-1 physics); K=3 with 7
+    steps exercises sweeps + remainder."""
     from dl_esm_inf_tpu.models import gravity_wave as gw
     gnx, gny = 96, 64
     ma = gw.build(gnx, gny, ndomains=4)
-    mb = gw.build(gnx, gny, ndomains=4, pallas=True,
-                  steps_per_sweep=sweep)
-    mb.enable_pallas(interpret=True, steps_per_sweep=sweep)
+    mb = gw.build(gnx, gny, ndomains=4, steps_per_sweep=sweep)
     for m in (ma, mb):
         m.set_initial_eta(gaussian_eta(gnx, gny, amp=0.5))
     ma.run(nsteps)
@@ -90,8 +83,7 @@ def test_gravity_wave_sweep_matches_jnp(sweep, nsteps):
 def test_gravity_wave_sweep_vs_golden():
     from dl_esm_inf_tpu.models import gravity_wave as gw
     gnx, gny = 96, 64
-    m = gw.build(gnx, gny, ndomains=4, pallas=True, steps_per_sweep=4)
-    m.enable_pallas(interpret=True, steps_per_sweep=4)
+    m = gw.build(gnx, gny, ndomains=4, steps_per_sweep=4)
     eta0 = gaussian_eta(gnx, gny, amp=0.5)
     m.set_initial_eta(eta0)
     m.run(40)
@@ -105,14 +97,12 @@ def test_gravity_wave_sweep_vs_golden():
 
 @pytest.mark.parametrize("sweep,nsteps", [(1, 5), (4, 10)])
 def test_shallow_sweep_matches_jnp(sweep, nsteps):
-    """Third client on the engine: SW offset + doubly-periodic wrap
-    riding the depth-K exchange between sweeps (no masks at all)."""
+    """Third client: SW offset + doubly-periodic wrap riding the
+    depth-K exchange between sweeps (no masks at all)."""
     from dl_esm_inf_tpu.models import shallow as sh
     gnx, gny = 96, 64
     ma = sh.build(gnx, gny, ndomains=4, dt=0.01)
-    mb = sh.build(gnx, gny, ndomains=4, dt=0.01, pallas=True,
-                  steps_per_sweep=sweep)
-    mb.enable_pallas(interpret=True, steps_per_sweep=sweep)
+    mb = sh.build(gnx, gny, ndomains=4, dt=0.01, steps_per_sweep=sweep)
     eta0 = np.random.default_rng(0).normal(size=(gny, gnx)) * 0.1
     for m in (ma, mb):
         m.set_initial_eta(eta0)
@@ -124,88 +114,56 @@ def test_shallow_sweep_matches_jnp(sweep, nsteps):
 
 
 def test_fused_step_guards():
-    with pytest.raises(ValueError, match="halo_width"):
-        bad = nl.build(32, 32, ndomains=1, halo_width=1)
-        bad.enable_pallas()
     with pytest.raises(ValueError, match="steps_per_sweep"):
-        nl.build(32, 32, ndomains=1, pallas=True, steps_per_sweep=0)
-    with pytest.raises(ValueError, match="steps_per_sweep"):
-        nl.build(32, 32, ndomains=1, pallas=True, steps_per_sweep=5)
-    m = nl.build(32, 32, ndomains=1, pallas=True, steps_per_sweep=2)
+        nl.build(32, 32, ndomains=1, steps_per_sweep=0)
+    from dl_esm_inf_tpu.ops.sweep import make_stencil_sweep
+    m = nl.build(32, 32, ndomains=1, halo_width=2)
+    with pytest.raises(ValueError, match="halo_width >= 6"):
+        make_stencil_sweep(lambda s, p, c: s, spec=m.grid.halo_spec,
+                           steps_per_sweep=3, reach=2)
+    m = nl.build(32, 32, ndomains=1, steps_per_sweep=2)
     with pytest.raises(ValueError, match="overlap"):
         m.step_program(4, overlap=True)
 
 
-def test_auto_tile_rows():
-    """Default TY prefers the largest multiple-of-8 even divider in
-    [64, 128] (a non-divider re-runs up to TY-1 rows in a clamped tail
-    tile); falls back to the measured-good 64 when nothing divides."""
-    from dl_esm_inf_tpu.ops.sweep import auto_tile_rows
-    assert auto_tile_rows(1040) == 104   # flagship 1024+2*8 block
-    assert auto_tile_rows(1024) == 128
-    assert auto_tile_rows(512) == 128
-    assert auto_tile_rows(520) == 104
-    assert auto_tile_rows(1000) == 64    # no even divider in range
-    assert auto_tile_rows(64) == 64
-    assert auto_tile_rows(48) == 48      # ly below the search range
-    for ly in range(8, 2064, 8):
-        ty = auto_tile_rows(ly)
-        assert ty % 8 == 0 and 0 < ty <= ly
-        assert ly % ty == 0 or ty == min(64, ly)
+# Tolerances by state dtype, fixed before the runs: the K-step and the
+# one-step programs evaluate the same operations in the same order, but
+# XLA may keep a fused intermediate at higher precision in one program
+# and round it in the other — an ulp of the state dtype per step.
+_SWEEP_TOL = {"float32": 1e-5, "float64": 1e-12, "bfloat16": 6e-2}
 
 
-def test_choose_tile_rows():
-    """Stream-count-aware TY (r4, extended r5): minimise total computed
-    window rows over 8-aligned TY with an even tile count under the
-    modelled scoped-VMEM budget — TY need not divide ly (the row loop
-    clamps the last tile); min_tiles (fused transport) is honoured
-    before any silent degradation."""
-    import jax.numpy as jnp
+@pytest.mark.parametrize("K", [2, 4])
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16"])
+@pytest.mark.parametrize("client", ["nemolite2d", "gravity_wave"])
+def test_sweep_state_dtypes(client, dtype, K):
+    """The engine takes any state dtype (the compiled-kernel refusals
+    of f64 and bf16 state are gone): K-step == one-step per client."""
+    import importlib
+    mod = importlib.import_module(f"dl_esm_inf_tpu.models.{client}")
+    gnx, gny = 48, 40
 
-    from dl_esm_inf_tpu.ops.sweep import (INTERMEDIATE_PLANES, RING,
-                                          TILE_VMEM_LIMIT, _cdiv,
-                                          auto_tile_rows,
-                                          choose_tile_rows)
-    f32, i8 = jnp.dtype("float32"), jnp.dtype("int8")
-    flag = ((f32,) * 3, (i8,))          # flagship-like stream set
-    assert choose_tile_rows(1040, 1152, *flag) == 520     # measured win
-    # min_tiles=4 (fused transport): the clamped 4-tile 264 (computed
-    # rows 1120) now beats the 10-tile divider 104 (1200) — r5
-    assert choose_tile_rows(1040, 1152, *flag, min_tiles=4) == 264
-    # two-layer-like stream count: clamped 4-tile 264 fits its budget
-    assert choose_tile_rows(1040, 1152, (f32,) * 6,
-                            (f32,) * 3 + (i8,)) == 264
-    # the 2048-grid flagship block: TY=344 at lx=2176 (117.5 MB
-    # modelled) was refused by the old 100 MB Mosaic cap; at the r5
-    # measured 126 MB cap / 118 MB model budget it compiles, runs, and
-    # WINS (192.5 vs 197.3 us/step vs 8x264) — 4.7% ring overhead
-    # instead of r4's 64-row fallback (~28%)
-    assert choose_tile_rows(2064, 2176, *flag) == 344
-    # ... and the 4096-grid block gets 26x160 clamped (11.3%)
-    assert choose_tile_rows(4112, 4224, *flag) == 160
-    # the TVD tracer stream set keeps its measured-working 520
-    assert choose_tile_rows(1040, 1152, (f32,),
-                            (f32,) * 5 + (i8,)) == 520
-    # property sweep: every answer is 8-aligned, within ly, fits the
-    # modelled scoped-VMEM limit when it came from the scan (with an
-    # even tile count and never a fully-redundant tile), and never
-    # computes more window rows than the auto fallback would
-    for ly in range(64, 2080, 8):
-        for n_state in (1, 3, 6):
-            st = (f32,) * n_state
-            ty = choose_tile_rows(ly, 1152, st, (i8,))
-            assert ty % 8 == 0 and 0 < ty <= ly
-            n_eff = _cdiv(ly, ty)
-            if ty != auto_tile_rows(ly):
-                assert n_eff % 2 == 0 and n_eff >= 2
-                assert (n_eff - 1) * ty < ly    # last tile does work
-                inter = INTERMEDIATE_PLANES * max(1, -(-n_state // 3))
-                per_row = 1152 * (2 * (2 * 4 * n_state + 1) + 4 * inter)
-                assert (ty + 2 * RING) * per_row <= TILE_VMEM_LIMIT
-                auto = auto_tile_rows(ly)
-                if _cdiv(ly, auto) >= 2:   # auto honours min_tiles too
-                    assert (n_eff * (ty + 2 * RING)
-                            <= _cdiv(ly, auto) * (auto + 2 * RING))
+    def make(k):
+        if client == "nemolite2d":
+            m = mod.build(gnx, gny, ndomains=4, halo_width=2, dtype=dtype,
+                          steps_per_sweep=k)
+            m.set_initial_ssh(gaussian_eta(gnx, gny, amp=0.5))
+        else:
+            m = mod.build(gnx, gny, ndomains=4, dtype=dtype,
+                          steps_per_sweep=k)
+            m.set_initial_eta(gaussian_eta(gnx, gny, amp=0.5))
+        m.run(2 * K + 1)
+        return m.gather()
+
+    ga, gb = make(1), make(K)
+    tol = _SWEEP_TOL[dtype]
+    for k in ga:
+        a = np.asarray(ga[k], np.float64)
+        b = np.asarray(gb[k], np.float64)
+        assert np.all(np.isfinite(b)), k
+        np.testing.assert_allclose(b, a, rtol=tol,
+                                   atol=tol * max(np.abs(a).max(), 1e-30),
+                                   err_msg=f"{client} {dtype} K={K} {k}")
 
 
 @pytest.mark.parametrize("model", ["gravity_wave", "shallow", "twolayer"])
@@ -238,29 +196,7 @@ def test_jnp_comm_avoidance_reach1_models(model):
                                    err_msg=f"{model} {k}")
 
 
-def test_compiled_sweep_rejects_f64():
-    """Mosaic has no 64-bit support; the engine must say so up front."""
-    import jax.numpy as jnp
-    from dl_esm_inf_tpu.ops.sweep import make_stencil_sweep
-    with pytest.raises(ValueError, match="64-bit"):
-        make_stencil_sweep(lambda s, p, c: s, ly=64, lx=128,
-                           state_dtypes=(jnp.float64,))
-
-
-def test_compiled_sweep_rejects_bf16_state():
-    """bf16 STATE measured a Mosaic compile failure on v5e (the window
-    ring is f32-sublane-aligned); int8 AUX planes remain supported."""
-    import jax.numpy as jnp
-    from dl_esm_inf_tpu.ops.sweep import make_stencil_sweep
-    with pytest.raises(ValueError, match="4-byte state"):
-        make_stencil_sweep(lambda s, p, c: s, ly=64, lx=128,
-                           state_dtypes=(jnp.bfloat16,))
-    # interpret mode (CPU tests) still allows it
-    make_stencil_sweep(lambda s, p, c: s, ly=64, lx=128,
-                       state_dtypes=(jnp.bfloat16,), interpret=True)
-
-
 def test_step_program_cache_hits():
-    m = _build(pallas=False, gnx=64, gny=32)
+    m = _build(gnx=64, gny=32)
     assert m.step_program(10) is m.step_program(10)
     assert m.step_program(10) is not m.step_program(10, overlap=True)

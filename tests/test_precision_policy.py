@@ -1,6 +1,6 @@
 """Precision policy: the same model at float32 / bfloat16 vs the fp64
 reference semantics (core/kinds.py — the reference pins GO_WP=double;
-the TPU-native policy makes precision configurable)."""
+the policy here makes precision configurable)."""
 import numpy as np
 import pytest
 
@@ -51,9 +51,9 @@ def test_float32_decomposition_invariance():
 
 
 def test_sin64_faithful():
-    """ops/trig: the faithful-f64 sine (XLA:TPU's own f64 sin is only
-    f32-accurate; this one is built from faithful add/mul, and carries
-    the fp64 parity of the tidal forcing on the chip)."""
+    """ops/trig: the faithful-f64 sine (built from faithful add/mul,
+    whatever the backend's own f64 sin lowering; it carries the fp64
+    parity of the tidal forcing)."""
     from dl_esm_inf_tpu.ops import trig
 
     xs = np.concatenate([

@@ -212,7 +212,7 @@ def test_flagship_kernel_in_schedule():
 
 
 # ---------------------------------------------------------------------------
-# Fused (Pallas sweep-engine) schedule execution
+# Fused (one exchange per application batch) schedule execution
 # ---------------------------------------------------------------------------
 
 def make_fused_grid(gnx=32, gny=32, ndom=4, halo=4):
@@ -234,7 +234,7 @@ def fused_chain_fields(grid):
 
 
 def test_fused_schedule_matches_jnp_schedule():
-    """The whole kernel sequence as ONE Pallas sweep (single up-front
+    """The whole kernel sequence as ONE sweep (single up-front
     exchange, redundant halo compute) == the jnp schedule with its
     mid-chain exchanges, on internal points, across shard seams."""
     g1, g2 = make_fused_grid(), make_fused_grid()
@@ -244,7 +244,7 @@ def test_fused_schedule_matches_jnp_schedule():
                              (double, c, b),
                              (east_plus, c, c, 0.5))
     Schedule(*calls(a1, b1, c1))()
-    Schedule(*calls(a2, b2, c2)).fused(interpret=True)
+    Schedule(*calls(a2, b2, c2)).fused()
     for f1, f2 in ((b1, b2), (c1, c2)):
         np.testing.assert_allclose(f2.gather_inner_data(),
                                    f1.gather_inner_data(),
@@ -262,7 +262,7 @@ def test_fused_schedule_repeats_and_scalars():
     s2 = Schedule((east_plus, b2, a2, 1.5), (double, a2, b2))
     for _ in range(3):
         s1(scalars=[2.5])
-    s2.fused(scalars=[2.5], repeats=3, interpret=True)
+    s2.fused(scalars=[2.5], repeats=3)
     for f1, f2 in ((a1, a2), (b1, b2)):
         np.testing.assert_allclose(f2.gather_inner_data(),
                                    f1.gather_inner_data(),
@@ -270,8 +270,8 @@ def test_fused_schedule_repeats_and_scalars():
 
 
 def test_fused_schedule_grid_property_array():
-    """garray constants (per-point grid properties) stream as aux
-    windows into the fused kernel."""
+    """garray constants (per-point grid properties) reach the fused
+    sweep as read-only operands."""
     @kernel(args=[go_arg(GO_WRITE, GO_CT), go_arg(GO_READ, GO_CT),
                   go_arg(GO_READ, GridProp.GRID_AREA_T)])
     def scale_area(out, x, area):
@@ -281,7 +281,7 @@ def test_fused_schedule_grid_property_array():
     a1, b1, _ = fused_chain_fields(g1)
     a2, b2, _ = fused_chain_fields(g2)
     Schedule((scale_area, b1, a1))()
-    Schedule((scale_area, b2, a2)).fused(interpret=True)
+    Schedule((scale_area, b2, a2)).fused()
     np.testing.assert_allclose(b2.gather_inner_data(),
                                b1.gather_inner_data(),
                                rtol=1e-12, atol=1e-12)
@@ -292,13 +292,13 @@ def test_fused_schedule_guards():
     a, b, c = fused_chain_fields(grid)
     # reductions are jnp-schedule-only
     with pytest.raises(NotImplementedError, match="reduction"):
-        Schedule((total, a)).fused(interpret=True)
+        Schedule((total, a)).fused()
     # halo too shallow for the sequence's dataflow erosion (the chain
     # b<-a then c<-b erodes 2: staleness propagates through b)
     sched = Schedule((east_plus, b, a, 1.0), (east_plus, c, b, 1.0))
     assert sched.fused_erosion(1) == 2
     with pytest.raises(ValueError, match="halo_width=2"):
-        sched.fused(interpret=True)
+        sched.fused()
 
 
 def test_fused_schedule_overdecomposed():
@@ -311,7 +311,7 @@ def test_fused_schedule_overdecomposed():
     a2, b2, c2 = fused_chain_fields(g2)
     calls = lambda a, b, c: ((east_plus, b, a, 3.0), (double, c, b))
     Schedule(*calls(a1, b1, c1))()
-    Schedule(*calls(a2, b2, c2)).fused(interpret=True)
+    Schedule(*calls(a2, b2, c2)).fused()
     np.testing.assert_allclose(c2.gather_inner_data(),
                                c1.gather_inner_data(),
                                rtol=1e-12, atol=1e-12)
@@ -385,7 +385,7 @@ def test_fused_schedule_fuzz():
             cur1, cur2 = fb1, fb2
 
         Schedule(*calls1)()
-        Schedule(*calls2).fused(interpret=True)
+        Schedule(*calls2).fused()
         np.testing.assert_allclose(
             fb2.gather_inner_data(), fb1.gather_inner_data(),
             rtol=1e-12, atol=1e-12,
@@ -405,13 +405,13 @@ def test_fused_schedule_per_repeat_scalars():
     series = [[0.25], [-1.0], [3.5]]
     for row in series:
         s1(scalars=row)
-    s2.fused(scalars=series, repeats=3, interpret=True)
+    s2.fused(scalars=series, repeats=3)
     for f1, f2 in ((a1, a2), (b1, b2)):
         np.testing.assert_allclose(f2.gather_inner_data(),
                                    f1.gather_inner_data(),
                                    rtol=1e-12, atol=1e-12)
     with pytest.raises(ValueError, match="per-repeat scalars"):
-        s2.fused(scalars=[[1.0]], repeats=3, interpret=True)
+        s2.fused(scalars=[[1.0]], repeats=3)
 
 
 def test_fused_program_scratch_slot_matches_jnp():
@@ -426,7 +426,7 @@ def test_fused_program_scratch_slot_matches_jnp():
     s2 = Schedule((east_plus, b2, a2, 1.5), (double, a2, b2))
     for _ in range(4):
         s1(scalars=[1.5])
-    s2.fused_program(4, interpret=True)(scalars=[1.5])
+    s2.fused_program(4)(scalars=[1.5])
     for f1, f2 in ((a1, a2), (b1, b2)):
         np.testing.assert_allclose(f2.gather_inner_data(),
                                    f1.gather_inner_data(),
@@ -463,7 +463,7 @@ def test_fused_program_multi_mask_written_slot_is_carried():
     f2, s2 = build(g2)
     for _ in range(3):
         s1()
-    s2.fused_program(3, interpret=True)()
+    s2.fused_program(3)()
     for x1, x2, nm in zip(f1, f2, "abc"):
         np.testing.assert_allclose(x2.gather_inner_data(),
                                    x1.gather_inner_data(),
@@ -485,16 +485,16 @@ def test_fused_program_readwrite_first_touch_is_carried():
     s2 = Schedule((incr, a2))
     for _ in range(3):
         s1()
-    s2.fused_program(3, interpret=True)()
+    s2.fused_program(3)()
     np.testing.assert_allclose(a2.gather_inner_data(),
                                a1.gather_inner_data(),
                                rtol=1e-12, atol=1e-12)
 
 
 def test_fused_program_multilevel_scratch():
-    """A levels=3 scratch slot rides the multi-step driver: its level
-    planes stream as read-only background during the loop steps and
-    emit on the final sweep."""
+    """A levels=3 scratch slot rides the multi-step driver: it is a
+    read-only background during the loop steps and is emitted by the
+    final sweep."""
     @kernel(args=[go_arg(GO_WRITE, GO_CT),
                   go_arg(GO_READ, GO_CT, go_stencil(0, 11, 0))],
             name="east_to_levels")
@@ -520,7 +520,7 @@ def test_fused_program_multilevel_scratch():
     s2 = Schedule((east3, w2, a2), (sumlev, a2, w2))
     for _ in range(3):
         s1()
-    s2.fused_program(3, interpret=True)()
+    s2.fused_program(3)()
     np.testing.assert_allclose(a2.gather_inner_data(),
                                a1.gather_inner_data(),
                                rtol=1e-12, atol=1e-12)
@@ -539,7 +539,7 @@ def test_fused_schedule_flat_scalars_with_0d_values():
     s1 = Schedule((east_plus, b1, a1, 0.0))
     s2 = Schedule((east_plus, b2, a2, 0.0))
     s1(scalars=[5.0])
-    s2.fused(scalars=[jnp.float64(5.0)], interpret=True)
+    s2.fused(scalars=[jnp.float64(5.0)])
     np.testing.assert_allclose(b2.gather_inner_data(),
                                b1.gather_inner_data(), rtol=1e-12)
 
@@ -597,8 +597,7 @@ def test_fused_schedule_more_than_eight_masks():
         kerns.append(kf)
 
     Schedule(*[(kf, o, src) for kf, o in zip(kerns, outs1)])()
-    Schedule(*[(kf, o, src) for kf, o in zip(kerns, outs2)]).fused(
-        interpret=True)
+    Schedule(*[(kf, o, src) for kf, o in zip(kerns, outs2)]).fused()
     for k, (o1, o2) in enumerate(zip(outs1, outs2)):
         np.testing.assert_allclose(o2.gather_inner_data(),
                                    o1.gather_inner_data(),
@@ -658,7 +657,7 @@ def test_fused_schedule_multilevel_matches_jnp_schedule():
         (mom3, u, v, e, dt), (cont3, e, u, v, f, dt),
         (vsum, c, e))
     Schedule(*calls(e1, u1, v1, f1, c1))()
-    Schedule(*calls(e2, u2, v2, f2, c2)).fused(interpret=True)
+    Schedule(*calls(e2, u2, v2, f2, c2)).fused()
     for x1, x2, name in ((e1, e2, "eta"), (u1, u2, "u"), (v1, v2, "v"),
                          (c1, c2, "vsum")):
         np.testing.assert_allclose(x2.gather_inner_data(),
@@ -694,7 +693,7 @@ def test_fused_schedule_multilevel_2d_result_broadcasts():
     e2, c2 = fields(g2)
     calls = lambda e, c: ((set_all_levels, e, c), (relax, e))
     Schedule(*calls(e1, c1))()
-    Schedule(*calls(e2, c2)).fused(interpret=True)
+    Schedule(*calls(e2, c2)).fused()
     np.testing.assert_allclose(e2.gather_inner_data(),
                                e1.gather_inner_data(),
                                rtol=1e-12, atol=1e-12)
@@ -706,4 +705,4 @@ def test_fused_schedule_multilevel_2d_result_broadcasts():
     g3 = make_fused_grid()
     e3, c3 = fields(g3)
     with pytest.raises(ValueError, match="level planes"):
-        Schedule((wrong_levels, e3, c3)).fused(interpret=True)
+        Schedule((wrong_levels, e3, c3)).fused()

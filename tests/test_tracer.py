@@ -1,6 +1,6 @@
 """Tracer transport (models/tracer.py): exact conservation through the
 tmask, golden-reference equality, decomposition invariance, TVD
-monotonicity, Pallas-interpret path equality, and the DA compositions
+monotonicity, K-step sweep equality, and the DA compositions
 (ensemble ETKF + 4D-Var source inversion)."""
 import numpy as np
 import pytest
@@ -81,23 +81,23 @@ def test_tvd_no_new_extrema():
 @pytest.mark.parametrize("scheme,K", [("upwind", 1), ("upwind", 4),
                                       ("vanleer", 1), ("vanleer", 2)])
 def test_pallas_interpret_matches_jnp(scheme, K):
-    """The fused sweep path (interpret mode) equals the jnp path —
-    same step_math, reach 1 and 2, temporal blocking.  Tolerance is
-    ONE ulp (atol 1e-15 on O(1e-2) values): XLA:CPU's excess-precision
-    mul+add contraction differs at the two programs' fusion boundaries
-    at a handful of points (measured 1.7e-18, i.e. the last bit); the
-    selects, rolls and masks are pinned exactly by the conservation
-    and golden tests above."""
+    """The K-step sweep on 4 shards equals the one-step path on one
+    shard — same step math, reach 1 and 2; K=1 pins decomposition
+    invariance alone.  Tolerance is ONE ulp (atol 1e-15 on O(1e-2)
+    values): XLA:CPU's excess-precision mul+add contraction differs at
+    the two programs' fusion boundaries at a handful of points
+    (measured 1.7e-18, i.e. the last bit); the selects, rolls and
+    masks are pinned exactly by the conservation and golden tests
+    above."""
     N = 32
     u, v = _rotating(N)
     c0 = _blob(N)
-    mj = tr.build(N, N, dt=0.2, u=u, v=v, kappa=0.02, scheme=scheme)
+    mj = tr.build(N, N, ndomains=1, dt=0.2, u=u, v=v, kappa=0.02,
+                  scheme=scheme)
     mj.set_initial_tracer(c0)
     mj.run(8)
-    mp = tr.build(N, N, dt=0.2, u=u, v=v, kappa=0.02, scheme=scheme,
-                  pallas=True, steps_per_sweep=K)
-    mp._pallas_interpret = True
-    mp._step_cache.clear()
+    mp = tr.build(N, N, ndomains=4, dt=0.2, u=u, v=v, kappa=0.02,
+                  scheme=scheme, steps_per_sweep=K)
     mp.set_initial_tracer(c0)
     mp.run(8)
     np.testing.assert_allclose(mp.gather()["c"], mj.gather()["c"],
@@ -353,6 +353,6 @@ def test_guards():
     from dl_esm_inf_tpu.models import nemolite2d as nl
     with pytest.raises(TypeError, match="NemoLite2D"):
         tr.CoupledTracer(object())
-    fsp = nl.build(32, 32, pallas=True)
-    with pytest.raises(ValueError, match="jnp path"):
+    fsp = nl.build(32, 32, steps_per_sweep=2)
+    with pytest.raises(ValueError, match="one-step path"):
         tr.CoupledTracer(fsp)

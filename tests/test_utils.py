@@ -105,7 +105,9 @@ def test_comms_schedule():
     m = nl.build(32, 24, ndomains=6, open_north=False, halo_width=2)
     sched = profiling.comms_schedule(m.grid.halo_spec, depth=2)
     with pytest.raises(ValueError, match="depth"):
-        profiling.comms_schedule(build(ndom=6).grid.halo_spec, depth=2)
+        profiling.comms_schedule(
+            nl.build(32, 24, ndomains=6, halo_width=1).grid.halo_spec,
+            depth=2)
     axes = {(e["axis"], e["direction"]) for e in sched}
     assert axes == {("x", "east"), ("x", "west"),
                     ("y", "north"), ("y", "south")}
